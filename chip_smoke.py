@@ -1,24 +1,31 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's two self-play paths on one CUDA card and check
+them.
 
 Run from the repository root, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-The main path is the 1-ply production self-play step
+Path 1 is the 1-ply production self-play step
 (``mlp_ppo_2ply_multi_tpu_torch.actor.rollout.rollout_step`` under
 ``Config.production()``: split planes, two-tier candidate evaluation through
-the fused board -> value CUDA kernel, bf16 value net) at B = 4096 games,
-continuous mode, with the in-repo checkpoint's weights. Phases, in order;
+the fused board -> value CUDA kernel, bf16 value net) at B = 4096 games.
+Path 2 is the 2-ply step under ``Config.production_twoply()`` with
+``movegen.nd_tail_kernel=True`` at B = 1024: merged legal moves, the top-4
+candidates reranked by the expected opponent reply, whose 15 non-double
+reply enumerations run the fused non-doubles tail CUDA kernel and whose 22
+value batches run the fused board -> value kernel. Both in continuous mode,
+td_mode "side0", with the in-repo checkpoint's weights. Phases, in order;
 any failure exits non-zero:
 
 1. device: torch's view of the card and nvidia-smi's name and power limit;
-2. build: nvcc builds ops/csrc/fused_value.cu (seconds, registers, spills);
-3. kernel vs plain: the kernel against ``fused_value_plain`` at the main
-   path's two shapes, on random in-domain boards and on the real candidate
-   boards of a production step;
-4. main path: warm-up, then timed production steps with the launch count
-   read around them (two launches per step);
+2. build: one nvcc per kernel source, started together (seconds,
+   registers, spills, shared memory);
+3. kernel vs plain (1-ply): fused_value against ``fused_value_plain`` at
+   the main path's two shapes, on random in-domain boards and on the real
+   candidate boards of a production step;
+4. main path (1-ply): warm-up, then timed production steps with the launch
+   count read around them (two launches per step);
 5. same step, kernel vs plain: one step from the same state and noise;
    decisions agree on >= 99.9% of rows and the integer state is identical
    on agreeing rows;
@@ -26,7 +33,20 @@ any failure exits non-zero:
    path (which the CPU tests hold against the JAX package) — bit-equal
    legal moves, identical integer state on agreeing rows;
 7. where the time goes: per-stage host times and a torch.profiler window;
-8. kernel timing and bound, then the kernels line and the result line.
+8. kernel timing and bound (1-ply shapes);
+9. kernels vs plain (2-ply): the inputs of one 2-ply step's 15 nd_tail and
+   22 fused_value calls, each kernel against its plain version (nd_tail
+   bit-equal: keep, n_pre, pct, kpair everywhere, after at kept slots);
+10. main path (2-ply): warm-up, then timed steps; exactly 15 nd_tail and 22
+    fused_value launches a step, checkers conserved, values finite;
+11. kernel vs no kernel (2-ply): one state, one noise, nd_tail_kernel on and
+    off: identical decisions and state on every row;
+12. card vs CPU (2-ply) at B = 32: merged legal moves bit-equal, decisions
+    equal but near-ties, identical integer state on agreeing rows;
+13. where the 2-ply time goes: per-stage host times and a torch.profiler
+    window;
+14. kernel timing and bound at the 2-ply shapes, then the kernels line and
+    the result line.
 
 It imports torch, numpy and the port only. Without CUDA, or without the
 port beside it, it exits non-zero and prints no result.
@@ -34,10 +54,12 @@ port beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -56,8 +78,19 @@ AGREE_MIN = 0.999
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at its 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+# CUDA-core operations (integer and f32, outside the tensor cores): the data
+# sheet's 67 TFLOP/s f32 rate, which bounds the nd_tail kernel's int work
+CORE_OPS_PER_S = 67e12
 KERNEL_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/ops/csrc/fused_value.cu"
 KERNEL_REPLACES = "mlp_ppo_2ply_multi_tpu/ops/fused_value.py:93"
+ND_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/experimental/csrc/nd_tail.cu"
+ND_REPLACES = "mlp_ppo_2ply_multi_tpu/experimental/nd_tail.py:137"
+B_TWOPLY = 1024
+B_TWOPLY_SMALL = 32
+WARMUP_2PLY = 2
+STEPS_2PLY = 8
+ND_LAUNCHES_PER_STEP = 15  # the non-double reply rolls
+FV_LAUNCHES_PER_STEP_2PLY = 22  # candidates + 15 + 6 reply rolls
 
 
 def log(*args) -> None:
@@ -75,13 +108,17 @@ def _port():
     from mlp_ppo_2ply_multi_tpu_torch.core.config import Config
     from mlp_ppo_2ply_multi_tpu_torch.encoder.features import encode_board
     from mlp_ppo_2ply_multi_tpu_torch.engine import board, movegen2
+    from mlp_ppo_2ply_multi_tpu_torch.engine import movegen
     from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
+    from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
     from mlp_ppo_2ply_multi_tpu_torch.model import value_net
     from mlp_ppo_2ply_multi_tpu_torch.ops import fused_value
+    from mlp_ppo_2ply_multi_tpu_torch.twoply import expectimax
 
     return dict(
         rollout=rollout, Config=Config, encode_board=encode_board, board=board,
-        movegen2=movegen2, vec_env=vec_env, value_net=value_net, fv=fused_value,
+        movegen=movegen, movegen2=movegen2, vec_env=vec_env, value_net=value_net,
+        fv=fused_value, nd=nd_tail, X=expectimax,
     )
 
 
@@ -97,19 +134,24 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-class _ValueFn:
-    """Swap the actor's value function for a while (plain version or a
-    capturing wrapper) and put the original back."""
+class _Swap:
+    """Swap a module attribute for a while (a plain version or a capturing
+    wrapper) and put the original back."""
 
-    def __init__(self, P, fn):
-        self.mod, self.fn = P["rollout"], fn
+    def __init__(self, mod, name, fn):
+        self.mod, self.name, self.fn = mod, name, fn
 
     def __enter__(self):
-        self.saved = self.mod.fused_value
-        self.mod.fused_value = self.fn
+        self.saved = getattr(self.mod, self.name)
+        setattr(self.mod, self.name, self.fn)
 
     def __exit__(self, *exc):
-        self.mod.fused_value = self.saved
+        setattr(self.mod, self.name, self.saved)
+
+
+def _ValueFn(P, fn):
+    """Swap the 1-ply actor's value function."""
+    return _Swap(P["rollout"], "fused_value", fn)
 
 
 def leaves(x, prefix=""):
@@ -138,6 +180,11 @@ def decisions(P, params, state, noise, cfg, value_fn=None):
             params, sm, cand_flag, sgn, noise.gumbel_t1, noise.gumbel_t2, temp, cfg
         )
     return action, sm
+
+
+def _to_cpu(x):
+    """A NamedTuple of tensors (nested) copied to the CPU."""
+    return type(x)(*(_to_cpu(v) if hasattr(v, "_fields") else v.cpu() for v in x))
 
 
 def compare_steps(P, a, b, agree, what):
@@ -173,14 +220,19 @@ def phase_device():
 
 
 def phase_build(P):
+    """One nvcc per kernel source, all started together."""
+    kernels = (P["fv"].KERNEL, P["nd"].KERNEL)
     t0 = time.perf_counter()
-    P["fv"].KERNEL.load()
-    info = P["fv"].KERNEL.build_info
-    log(f"[2 build] {info.get('path')} cached={info.get('cached')} "
-        f"nvcc_s={info.get('seconds', 0.0):.2f} load_s={time.perf_counter() - t0:.2f}")
-    for line in str(info.get("ptxas", "")).splitlines():
-        if any(w in line for w in ("registers", "spill", "smem", "Compiling")):
-            log(f"[2 build] ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(lambda k: k.load(), kernels))
+    log(f"[2 build] both kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    for k in kernels:
+        info = k.build_info
+        log(f"[2 build] {info.get('path')} cached={info.get('cached')} "
+            f"nvcc_s={info.get('seconds', 0.0):.2f}")
+        for line in str(info.get("ptxas", "")).splitlines():
+            if any(w in line for w in ("registers", "spill", "smem", "Compiling")):
+                log(f"[2 build] ptxas: {line.strip()}")
 
 
 def capture_candidates(P, params, state, cfg, dev, gen):
@@ -201,15 +253,16 @@ def capture_candidates(P, params, state, cfg, dev, gen):
     return state, seen
 
 
-def phase_kernel_vs_plain(P, params, real_inputs, dev, gen, card):
+def phase_kernel_vs_plain(P, params, real_inputs, dev, gen, card, random_cases=True,
+                          tag="[3 kernel vs plain]"):
     fv = P["fv"]
     cases = []
-    for shape in ((B_PROD, 96), (256, 448)):
+    for shape in ((B_PROD, 96), (256, 448)) if random_cases else ():
         boards = torch.randint(0, 16, (*shape, 52), generator=gen, device=dev).to(torch.int8)
         flag = torch.randint(0, 2, (shape[0], 1), generator=gen, device=dev)
         cases.append((f"random{list(shape)}", boards, flag))
     for i, (boards, flag) in enumerate(real_inputs):
-        cases.append((f"step_tier{i + 1}{list(boards.shape[:-1])}", boards, flag))
+        cases.append((f"step_call{i + 1}{list(boards.shape[:-1])}", boards, flag))
     worst = 0.0
     for name, boards, flag in cases:
         got = fv.fused_value(boards, flag, params)
@@ -220,7 +273,7 @@ def phase_kernel_vs_plain(P, params, real_inputs, dev, gen, card):
         d = (got - want).abs()
         mx, mean = float(d.max()), float(d.mean())
         worst = max(worst, mx)
-        log(f"[3 kernel vs plain] {name}: max|dv|={mx:.3e} mean|dv|={mean:.3e} "
+        log(f"{tag} {name}: max|dv|={mx:.3e} mean|dv|={mean:.3e} "
             f"tol={KERNEL_TOL} {card}")
         if mx > KERNEL_TOL:
             raise AssertionError(f"kernel disagrees with plain at {name}: {mx}")
@@ -309,8 +362,7 @@ def phase_card_vs_cpu(P, params, cfg, dev, gen, card):
         )
     noise = R.draw_noise(B_SMALL, cfg, gen, dev)
     cpu = torch.device("cpu")
-    to_cpu = lambda x: type(x)(*(to_cpu(v) if hasattr(v, "_fields") else v.cpu() for v in x))
-    state_c, noise_c = to_cpu(state), to_cpu(noise)
+    state_c, noise_c = _to_cpu(state), _to_cpu(noise)
     params_c = {k: v.cpu() for k, v in params.items()}
 
     sm_g = mg2.legal_moves_split(state.board, state.player, state.dice, cfg.movegen)
@@ -371,9 +423,21 @@ def phase_time_breakdown(P, params, state, cfg, dev, gen, step_ms, card):
     log(f"[7 time] per-stage ms/step (synchronised): "
         f"{json.dumps({k: round(v, 3) for k, v in stages.items()})} {card}")
 
+    profile_steps(P, params, state, cfg, dev, gen, 4, step_ms, card, "[7 time]")
+
+
+def _dev_t(e) -> float:
+    """An event's own device time in us (the attribute's name differs
+    between torch versions)."""
+    return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+
+def profile_steps(P, params, state, cfg, dev, gen, steps, step_ms, card, tag):
+    """Device busy time, idle share and the top device ops of ``steps``
+    steps under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    steps = 4
+    R = P["rollout"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -383,26 +447,24 @@ def phase_time_breakdown(P, params, state, cfg, dev, gen, step_ms, card):
         _sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
     ev = prof.key_averages()
-    dev_t = lambda e: getattr(e, "self_device_time_total", 0) or getattr(
-        e, "self_cuda_time_total", 0
-    )
+    dev_t = _dev_t
     busy_us = sum(dev_t(e) for e in ev)
     n_kern = sum(e.count for e in ev if dev_t(e) > 0)
     if busy_us > 0:
         busy_ms = busy_us / steps / 1e3
         # the profiler slows the host, so the traced wall overstates the step;
-        # the idle share of the untraced step uses phase 4's ms/step
-        log(f"[7 time] profiler: device busy {busy_ms:.3f} ms/step of "
+        # the idle share of the untraced step uses the timed phase's ms/step
+        log(f"{tag} profiler: device busy {busy_ms:.3f} ms/step of "
             f"{wall_us / steps / 1e3:.3f} ms/step traced wall (idle share "
             f"{1 - busy_us / wall_us:.3f}); of the untraced {step_ms:.3f} ms/step "
             f"(idle share {1 - busy_ms / step_ms:.3f}); "
             f"{n_kern / steps:.0f} device ops/step {card}")
-        top = sorted(ev, key=dev_t, reverse=True)[:10]
+        top = sorted(ev, key=dev_t, reverse=True)[:12]
         for e in top:
-            log(f"[7 time]   {dev_t(e) / steps / 1e3:8.3f} ms/step  x{e.count // steps:<4d} "
+            log(f"{tag}   {dev_t(e) / steps / 1e3:8.3f} ms/step  x{e.count // steps:<4d} "
                 f"{e.key[:90]}")
     else:
-        log("[7 time] profiler: device time not measured (no CUDA events)")
+        log(f"{tag} profiler: device time not measured (no CUDA events)")
 
 
 def _time_ms(fn, dev, iters=30):
@@ -439,28 +501,400 @@ def kernel_bound(boards, hidden=128):
     )
 
 
-def phase_kernel_timing(P, params, real_inputs, dev, card):
-    """Per main-path shape: the kernel alone (launches on operands laid out
-    once), the whole wrapper as the main path calls it (params recombined on
-    every call), and the plain version. The inputs stay in L2 between
-    launches, as the main path's freshly gathered tier tensors do."""
+def _device_ms_per_round(fns, dev, kernel_name, rounds=10):
+    """Device time of the named kernel per round of calling every fn once,
+    from torch.profiler: the kernel alone, whatever the host's launch rate
+    (a loop timed with CUDA events measures the host where each launch is
+    shorter than its Python wrapper). The first round is the profiler's
+    warm-up and is not recorded; if the trace still drops a record, the
+    recorded launches' mean is scaled to one round, and fewer than 90% of
+    the launches recorded fails the run."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for f in fns:
+        f()
+    _sync(dev)
+    traced = []
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+        on_trace_ready=lambda p: traced.append(p.key_averages()),
+    ) as prof:
+        for work in (1, rounds):  # warm-up, then the recorded rounds
+            for _ in range(work):
+                for f in fns:
+                    f()
+            _sync(dev)
+            prof.step()
+    if len(traced) != 1:
+        raise AssertionError(f"profiler returned {len(traced)} traces, not 1")
+    evs = [e for e in traced[0] if kernel_name in e.key and _dev_t(e) > 0]
+    n = sum(e.count for e in evs)
+    want = rounds * len(fns)
+    if n < 0.9 * want or n > want:
+        raise AssertionError(f"profiler saw {n} {kernel_name} launches, not {want}")
+    if n != want:
+        log(f"[profiler] recorded {n} of {want} {kernel_name} launches; mean scaled to a round")
+    return sum(_dev_t(e) for e in evs) / n * len(fns) / 1e3
+
+
+def phase_kernel_timing(P, params, real_inputs, dev, card, tag="[8 kernel time]", iters=30):
+    """Per main-path input, with CUDA events around a loop of calls: the
+    kernel alone (launches on operands laid out once), the whole wrapper as
+    the main path calls it (params recombined on every call), and the plain
+    version; then the kernel's device time per step from the profiler. The
+    inputs stay in L2 between launches, as the main path's freshly gathered
+    tensors do."""
     fv = P["fv"]
     per = []
+    kernel_calls = []
     for boards, flag in real_inputs:
         ops = fv.kernel_operands(boards, flag, params)
+        kernel_calls.append(functools.partial(fv.launch_kernel, *ops))
         kern = lambda: fv.launch_kernel(*ops)
         wrap = lambda: fv.fused_value(boards, flag, params)
         plain = lambda: fv.fused_value_plain(boards, flag, params)
         # plain, kernel, wrapper, wrapper, kernel, plain in one call on one card
         p1, k1, w1, w2, k2, p2 = (
-            _time_ms(f, dev) for f in (plain, kern, wrap, wrap, kern, plain)
+            _time_ms(f, dev, iters) for f in (plain, kern, wrap, wrap, kern, plain)
         )
         bd = kernel_bound(boards)
-        row = dict(shape=list(boards.shape[:-1]), ms=(k1 + k2) / 2, wrapper_ms=(w1 + w2) / 2,
-                   plain_ms=(p1 + p2) / 2, runs_ms=[p1, k1, w1, w2, k2, p2], **bd)
+        row = dict(shape=list(boards.shape[:-1]), events_ms=(k1 + k2) / 2,
+                   wrapper_ms=(w1 + w2) / 2, plain_ms=(p1 + p2) / 2,
+                   runs_ms=[p1, k1, w1, w2, k2, p2], **bd)
         per.append(row)
-        log(f"[8 kernel time] {json.dumps(row)} {card}")
-    return per
+        log(f"{tag} {json.dumps(row)} {card}")
+    step = _step_sums(per, _device_ms_per_round(kernel_calls, dev, "fused_value_kernel"))
+    log(f"{tag} one step: {json.dumps(step)} {card}")
+    return step
+
+
+def _step_sums(per, device_ms):
+    """One step's launches summed: the kernel's device time (profiler), and
+    the event-timed kernel, wrapper and plain loops, and the bound."""
+    t_bytes = sum(r["bytes_ms"] for r in per)
+    t_ops = sum(r["ops_ms"] for r in per)
+    return dict(
+        calls_per_step=len(per),
+        ms=device_ms,
+        events_ms=sum(r["events_ms"] for r in per),
+        wrapper_ms=sum(r["wrapper_ms"] for r in per),
+        plain_ms=sum(r["plain_ms"] for r in per),
+        bound_ms=sum(r["bound_ms"] for r in per),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
+
+
+# ---------------------------------------------------------------------------
+# the 2-ply path
+# ---------------------------------------------------------------------------
+
+
+def twoply_config(P, kernel=True):
+    """Config.production_twoply() with td_mode "side0" and the fused
+    non-doubles tail kernel on (or off, for the kernel-vs-no-kernel check)."""
+    cfg = P["Config"].production_twoply()
+    return cfg.replace(
+        movegen=dataclasses.replace(cfg.movegen, nd_tail_kernel=kernel),
+        train=dataclasses.replace(cfg.train, td_mode="side0"),
+    )
+
+
+def twoply_steps(P, params, state, cfg, dev, gen, n):
+    for _ in range(n):
+        state, _ = P["rollout"].rollout_step(
+            params, state, cfg.train.initial_temperature, cfg, True, gen=gen, device=dev
+        )
+    return state
+
+
+def capture_twoply_inputs(P, params, state, cfg, dev, gen):
+    """Run one 2-ply step and keep the arguments of each nd_tail_fused and
+    fused_value call: the real inputs of the 2-ply path's kernels."""
+    nd, X = P["nd"], P["X"]
+    nd_real, fv_real = nd.nd_tail_fused, X.fused_value
+    nd_seen, fv_seen = [], []
+
+    def nd_capture(*args):
+        nd_seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return nd_real(*args)
+
+    def fv_capture(boards, flag, prm):
+        fv_seen.append((boards.clone(), torch.broadcast_to(flag, boards.shape[:-1]).clone()))
+        return fv_real(boards, flag, prm)
+
+    with _Swap(nd, "nd_tail_fused", nd_capture), _Swap(X, "fused_value", fv_capture):
+        state = twoply_steps(P, params, state, cfg, dev, gen, 1)
+    return state, nd_seen, fv_seen
+
+
+def phase_twoply_kernels_vs_plain(P, params, nd_seen, fv_seen, dev, gen, card):
+    """Both kernels against their plain versions on one 2-ply step's real
+    inputs. nd_tail must be bit-equal (after at kept slots); its max abs
+    error is taken over every compared integer."""
+    nd = P["nd"]
+    worst = 0
+    after_everywhere = True
+    kept = rows = 0
+    for args in nd_seen:
+        got = nd.nd_tail_fused(*args)
+        want = nd.nd_tail_plain(*args)
+        _sync(dev)
+        for name, a, b in zip(("after", "keep", "n_pre", "pct", "kpair"), got, want):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"nd_tail {name}: {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
+        m = want[1]
+        diffs = [(got[0][m].int() - want[0][m].int()).abs()]
+        diffs += [(a.int() - b.int()).abs() for a, b in zip(got[1:], want[1:])]
+        worst = max([worst] + [int(d.max()) for d in diffs if d.numel()])
+        after_everywhere &= torch.equal(got[0], want[0])
+        kept += int(m.sum())
+        rows += m.shape[0]
+    n_pre = torch.cat([a[0].sum(-1) for a in nd_seen])
+    log(f"[9 kernels vs plain 2-ply] nd_tail: {len(nd_seen)} calls at "
+        f"{list(nd_seen[0][0].shape[:1]) + [nd_seen[0][7]]} (K = a_max = {nd_seen[0][8]}), "
+        f"{rows} rows, {kept} kept slots, n_pre mean {float(n_pre.float().mean()):.2f} "
+        f"max {int(n_pre.max())}; max |diff| over keep/n_pre/pct/kpair and kept "
+        f"afterstates = {worst}; after equal at every slot: {after_everywhere} {card}")
+    if worst != 0:
+        raise AssertionError("nd_tail kernel differs from its plain version")
+    worst_fv = phase_kernel_vs_plain(P, params, fv_seen, dev, gen, card, random_cases=False,
+                                     tag="[9 kernels vs plain 2-ply] fused_value")
+    return float(worst), worst_fv
+
+
+def phase_twoply_main(P, params, state, cfg, dev, gen, card):
+    fv, nd, Bd = P["fv"], P["nd"], P["board"]
+    R = P["rollout"]
+    temp = cfg.train.initial_temperature
+    state = twoply_steps(P, params, state, cfg, dev, gen, WARMUP_2PLY)
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    fv.KERNEL.launches = 0
+    nd.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    ev0.record()
+    ts = []
+    for _ in range(STEPS_2PLY):
+        state, t = R.rollout_step(params, state, temp, cfg, True, gen=gen, device=dev)
+        ts.append(t)
+    ev1.record()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    fv_launches, nd_launches = fv.KERNEL.launches, nd.KERNEL.launches
+    dev_ms = ev0.elapsed_time(ev1)
+    traj = R.Transition(*(torch.stack(xs) for xs in zip(*ts)))
+    b = state.player.shape[0]
+    stats = {
+        "batch": b,
+        "steps": STEPS_2PLY,
+        "ms_per_step": dev_ms / STEPS_2PLY,
+        "env_steps_per_s": b * STEPS_2PLY / (dev_ms / 1e3),
+        "wall_env_steps_per_s": b * STEPS_2PLY / wall,
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "fused_value_launches": fv_launches,
+        "nd_tail_launches": nd_launches,
+        "games_finished": int(traj.done.sum()),
+        "mean_legal_moves": float(traj.num_moves[traj.recorded].float().mean()),
+        "overflow_count": int(traj.overflow.sum()),
+        "conservation_ok": bool(
+            Bd.checker_conservation_ok(Bd.Board(traj.packed_board)).all()
+            & Bd.checker_conservation_ok(state.board).all()
+        ),
+        "values_finite": bool(torch.isfinite(traj.value).all()),
+        "card": card,
+    }
+    log(f"[10 main path 2-ply] {json.dumps(stats)}")
+    if nd_launches != ND_LAUNCHES_PER_STEP * STEPS_2PLY:
+        raise AssertionError(f"nd_tail launched {nd_launches} times in {STEPS_2PLY} steps")
+    if fv_launches != FV_LAUNCHES_PER_STEP_2PLY * STEPS_2PLY:
+        raise AssertionError(f"fused_value launched {fv_launches} times in {STEPS_2PLY} steps")
+    if not stats["conservation_ok"] or not stats["values_finite"]:
+        raise AssertionError("2-ply path produced invalid boards or values")
+    return state, stats
+
+
+def decisions_2ply(P, params, state, noise, cfg):
+    """The actions the 2-ply step takes from ``state`` with ``noise``, and
+    the merged legal moves they were taken over."""
+    moves = P["movegen2"].legal_moves(state.board, state.player, state.dice, cfg.movegen)
+    temp = torch.tensor(cfg.train.initial_temperature, device=state.player.device)
+    action, _ = P["X"].select_action_2ply(
+        params, state, moves, noise.gumbel_2ply, noise.gumbel_1ply, temp, cfg
+    )
+    return action, moves
+
+
+def sampled_gap_2ply(P, params, state, moves, noise, cfg, row, a, b):
+    """The gap between the sampled logits (logit + Gumbel) of entries a and
+    b of one row, as select_action_2ply scores them: the 2-ply rerank where
+    the row has >= k moves, the 1-ply softmax otherwise."""
+    X = P["X"]
+    tw = cfg.twoply
+    temp = cfg.train.initial_temperature
+    v = X.oriented_values(params, moves.boards, state.player[..., None], cfg)
+    vm = torch.where(moves.valid, v, X._NEG)
+    if int(moves.count[row]) < tw.top_k_candidates:
+        lg = torch.where(moves.valid[row], vm[row] / temp, X._NEG) + noise.gumbel_1ply[row]
+        return abs(float(lg[a] - lg[b]))
+    topv, topi = X.topk_small(vm, tw.top_k_candidates)
+    cand = P["movegen"].board_take(moves.boards, topi)
+    w_o = X.weighted_opponent_response(params, cand, 1 - state.player, cfg)
+    lg = (tw.alpha * topv[row] - tw.beta * w_o[row]) / temp + noise.gumbel_2ply[row]
+    pos = {int(i): j for j, i in enumerate(topi[row])}
+    return abs(float(lg[pos[a]] - lg[pos[b]]))
+
+
+def phase_twoply_kernel_vs_no_kernel(P, params, state, cfg, dev, gen, card):
+    """One state and one noise through the 2-ply step with the nd_tail kernel
+    and with the plain tail: B2 is exact, so every decision, every state
+    leaf and every transition leaf must be identical."""
+    R, nd = P["rollout"], P["nd"]
+    b = state.player.shape[0]
+    noise = R.draw_noise(b, cfg, gen, dev)
+    cfg_plain = twoply_config(P, kernel=False)
+    a_k, _ = decisions_2ply(P, params, state, noise, cfg)
+    n0 = nd.KERNEL.launches
+    a_p, _ = decisions_2ply(P, params, state, noise, cfg_plain)
+    if nd.KERNEL.launches != n0:
+        raise AssertionError("the no-kernel step launched the nd_tail kernel")
+    temp = cfg.train.initial_temperature
+    res_k = R.rollout_step(params, state, temp, cfg, True, noise=noise, device=dev)
+    res_p = R.rollout_step(params, state, temp, cfg_plain, True, noise=noise, device=dev)
+    (sk, tk), (sp, tp) = res_k, res_p
+    lk = {**leaves(sk, "state."), **leaves(tk, "t.")}
+    lp = {**leaves(sp, "state."), **leaves(tp, "t.")}
+    differ = [k for k in lk if not torch.equal(lk[k], lp[k])]
+    n_same = int((a_k == a_p).sum())
+    log(f"[11 kernel vs no kernel 2-ply] B={b}: decisions {n_same}/{b} identical; "
+        f"state and transition leaves differing: {differ or 'none'} {card}")
+    if n_same != b or differ:
+        raise AssertionError("2-ply step differs with and without the nd_tail kernel")
+
+
+def phase_twoply_card_vs_cpu(P, params, cfg, dev, gen, card):
+    R, mg2, VE = P["rollout"], P["movegen2"], P["vec_env"]
+    state = VE.reset(B_TWOPLY_SMALL, gen, device=dev)
+    state = twoply_steps(P, params, state, cfg, dev, gen, 4)
+    noise = R.draw_noise(B_TWOPLY_SMALL, cfg, gen, dev)
+    cpu = torch.device("cpu")
+    state_c, noise_c = _to_cpu(state), _to_cpu(noise)
+    params_c = {k: v.cpu() for k, v in params.items()}
+
+    a_g, m_g = decisions_2ply(P, params, state, noise, cfg)
+    a_c, m_c = decisions_2ply(P, params_c, state_c, noise_c, cfg)
+    for f in ("valid", "count", "overflow"):
+        if not torch.equal(getattr(m_g, f).cpu(), getattr(m_c, f)):
+            raise AssertionError(f"2-ply legal_moves differs card vs CPU: {f}")
+    if not torch.equal(m_g.boards.data.cpu()[m_c.valid], m_c.boards.data[m_c.valid]):
+        raise AssertionError("2-ply legal_moves boards differ card vs CPU")
+    live = m_c.count > 0
+    agree = (a_g.cpu() == a_c) | ~live
+    gaps = [
+        sampled_gap_2ply(P, params_c, state_c, m_c, noise_c, cfg, int(r), int(a_g[r]), int(a_c[r]))
+        for r in torch.nonzero(~agree)[:, 0]
+    ]
+    temp = cfg.train.initial_temperature
+    res_g = R.rollout_step(params, state, temp, cfg, True, noise=noise, device=dev)
+    res_c = R.rollout_step(params_c, state_c, temp, cfg, True, noise=noise_c, device=cpu)
+    compare_steps(P, res_g, res_c, agree, "2-ply card vs CPU step")
+    log(f"[12 card vs cpu 2-ply] B={B_TWOPLY_SMALL}: legal_moves bit-equal; decisions "
+        f"{int(agree.sum())}/{B_TWOPLY_SMALL} agree; near-tie gaps of the others {gaps} {card}")
+    if any(g > 2 * KERNEL_TOL / temp for g in gaps):
+        raise AssertionError(f"2-ply card and CPU decisions disagree beyond a near-tie: {gaps}")
+
+
+def phase_twoply_stages(P, params, state, cfg, dev, gen, card):
+    """Per-stage times of the 2-ply step, each synchronised: merged legal
+    moves, the observation and candidate values with the top-k select, the
+    scorer (E[opponent response] of the k candidates), and the env step."""
+    R, X, VE = P["rollout"], P["X"], P["vec_env"]
+    b = state.player.shape[0]
+    k = cfg.twoply.top_k_candidates
+    stages = dict(movegen=0.0, values_topk=0.0, scorer=0.0, select_action_2ply=0.0, env=0.0)
+    n = 3
+    for _ in range(n):
+        noise = R.draw_noise(b, cfg, gen, dev)
+        _sync(dev)
+        marks = [time.perf_counter()]
+        moves = P["movegen2"].legal_moves(state.board, state.player, state.dice, cfg.movegen)
+        _sync(dev); marks.append(time.perf_counter())
+        P["value_net"].forward(params, P["encode_board"](state.board, state.player), cfg.model)
+        v = X.oriented_values(params, moves.boards, state.player[..., None], cfg)
+        _, topi = X.topk_small(torch.where(moves.valid, v, X._NEG), k)
+        cand = P["movegen"].board_take(moves.boards, topi)
+        _sync(dev); marks.append(time.perf_counter())
+        X.weighted_opponent_response(params, cand, 1 - state.player, cfg)
+        _sync(dev); marks.append(time.perf_counter())
+        temp = torch.tensor(cfg.train.initial_temperature, device=dev)
+        action, _ = X.select_action_2ply(
+            params, state, moves, noise.gumbel_2ply, noise.gumbel_1ply, temp, cfg
+        )
+        _sync(dev); marks.append(time.perf_counter())
+        res = VE.step(state, moves, action, noise.next_dice, cfg.env)
+        done = res.done | (~res.state.game_over & (res.state.step_count >= cfg.env.max_timesteps))
+        state = VE.reset_where(done, res.state, noise.reset_opener, noise.reset_first)
+        _sync(dev); marks.append(time.perf_counter())
+        for key, (t0, t1) in zip(stages, zip(marks, marks[1:])):
+            stages[key] += (t1 - t0) * 1e3 / n
+    # select_action_2ply runs the values, the top-k and the scorer again,
+    # plus the sampling: movegen + select_action_2ply + env is one step
+    log(f"[13 time 2-ply] per-stage ms/step (synchronised; select_action_2ply "
+        f"= values_topk + scorer + sampling): "
+        f"{json.dumps({key: round(v, 3) for key, v in stages.items()})} {card}")
+    return state
+
+
+def nd_tail_bound(valid, K):
+    """Least time for nd_tail on these rows: the bytes it must move (1512
+    candidate bytes, two 27 x 52 child tables, the 52-byte root and three
+    int32 in; K x 52 afterstates, keep and kpair bytes and two int32 out)
+    over HBM bandwidth, and the operations this data needs over the
+    CUDA-core rate: every candidate bit is read by the select, and each
+    present candidate (at most K) is decoded, applied and signed (counted
+    as 64 operations) and compared with the earlier ones."""
+    n = valid.shape[0]
+    m = valid.sum(-1).clamp_max(K).to(torch.int64)
+    nbytes = n * (1512 + 2 * 27 * 52 + 52 + 3 * 4) + n * (K * 52 + 2 * K + 2 * 4)
+    ops = n * 1512 + int((64 * m + m * (m - 1) // 2).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CORE_OPS_PER_S * 1e3
+    return dict(
+        rows=n, K=K, present_per_row=float(m.float().mean()), bytes=nbytes, ops=ops,
+        bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
+
+
+def phase_twoply_kernel_timing(P, params, nd_seen, fv_seen, dev, card):
+    """nd_tail per captured call: the kernel alone, the wrapper (operand
+    layout + launch) and the plain version; fused_value at the 2-ply
+    shapes likewise. Each summed over one step's launches."""
+    nd = P["nd"]
+    per = []
+    kernel_calls = []
+    for args in nd_seen:
+        K, a_max = args[7], args[8]
+        ops = nd.kernel_operands(*args[:7], K)
+        kernel_calls.append(functools.partial(nd.launch_kernel, *ops, K, a_max))
+        kern = kernel_calls[-1]
+        wrap = lambda: nd.nd_tail_fused(*args)
+        plain = lambda: nd.nd_tail_plain(*args)
+        p1, k1, w1, w2, k2, p2 = (
+            _time_ms(f, dev, 10) for f in (plain, kern, wrap, wrap, kern, plain)
+        )
+        per.append(dict(events_ms=(k1 + k2) / 2, wrapper_ms=(w1 + w2) / 2,
+                        plain_ms=(p1 + p2) / 2, runs_ms=[p1, k1, w1, w2, k2, p2],
+                        **nd_tail_bound(args[0], K)))
+    nd_step = _step_sums(per, _device_ms_per_round(kernel_calls, dev, "nd_tail_kernel"))
+    log(f"[14 kernel time 2-ply] nd_tail per launch: "
+        f"{json.dumps({k: per[0][k] for k in ('rows', 'K', 'bytes', 'ops', 'bytes_ms', 'ops_ms', 'bound_ms')})}; "
+        f"event-timed loop ms per call {[round(r['events_ms'], 4) for r in per]} {card}")
+    log(f"[14 kernel time 2-ply] nd_tail one step: {json.dumps(nd_step)} {card}")
+    fv_step = phase_kernel_timing(P, params, fv_seen, dev, card, "[14 kernel time 2-ply] fused_value", 10)
+    return nd_step, fv_step
 
 
 def main() -> int:
@@ -492,24 +926,69 @@ def main() -> int:
     phase_same_step(P, params, state, cfg, dev, gen, card)
     phase_card_vs_cpu(P, params, cfg, dev, gen, card)
     phase_time_breakdown(P, params, state, cfg, dev, gen, stats["ms_per_step"], card)
-    per = phase_kernel_timing(P, params, real_inputs, dev, card)
+    fv1_step = phase_kernel_timing(P, params, real_inputs, dev, card)
+    del real_inputs, state
 
-    kernels = [{
-        "name": "fused_value",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": stats["fused_value_launches"],
-        "max_abs_err": max_err,
-        # one production step's two launches (tier 1 + tier 2), summed
-        "ms": sum(r["ms"] for r in per),
-        "plain_ms": sum(r["plain_ms"] for r in per),
-        "bound_ms": sum(r["bound_ms"] for r in per),
-        "bound_by": "bytes" if sum(r["bytes_ms"] for r in per) >= sum(r["ops_ms"] for r in per)
-        else "operations",
-        "library_ms": None,
-        "ok": True,
-    }]
+    cfg2 = twoply_config(P)
+    state2 = P["vec_env"].reset(B_TWOPLY, gen, device=dev)
+    state2 = twoply_steps(P, params, state2, cfg2, dev, gen, 2)  # off the opening
+    state2, nd_seen, fv_seen = capture_twoply_inputs(P, params, state2, cfg2, dev, gen)
+    reply = B_TWOPLY * cfg2.twoply.top_k_candidates
+    shapes = [tuple(b.shape[:-1]) for b, _ in fv_seen]
+    want = [(B_TWOPLY, 448)] + [(B_TWOPLY, 4, 96)] * 15 + [(B_TWOPLY, 4, 64)] * 3 + [
+        (B_TWOPLY, 4, 128)] * 3
+    nd_shapes = {(a[0].shape[0], a[7], a[8]) for a in nd_seen}
+    if shapes != want or len(nd_seen) != 15 or nd_shapes != {(reply, 96, 96)}:
+        raise AssertionError(f"unexpected 2-ply shapes {shapes} {nd_shapes} x{len(nd_seen)}")
+    nd_err, fv2_err = phase_twoply_kernels_vs_plain(P, params, nd_seen, fv_seen, dev, gen, card)
+    state2, stats2 = phase_twoply_main(P, params, state2, cfg2, dev, gen, card)
+    phase_twoply_kernel_vs_no_kernel(P, params, state2, cfg2, dev, gen, card)
+    phase_twoply_card_vs_cpu(P, params, cfg2, dev, gen, card)
+    state2 = phase_twoply_stages(P, params, state2, cfg2, dev, gen, card)
+    profile_steps(P, params, state2, cfg2, dev, gen, 2, stats2["ms_per_step"], card,
+                  "[13 time 2-ply]")
+    nd_step, fv2_step = phase_twoply_kernel_timing(P, params, nd_seen, fv_seen, dev, card)
+
+    kernels = [
+        {
+            "name": "fused_value",
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": KERNEL_REPLACES,
+            # both paths' timed runs, each counted from 0 just before it
+            "launches": stats["fused_value_launches"] + stats2["fused_value_launches"],
+            "max_abs_err": max(max_err, fv2_err),
+            # one 1-ply production step's two launches (tier 1 + tier 2), summed;
+            # ms is the kernels' device time from the profiler
+            "ms": fv1_step["ms"],
+            "plain_ms": fv1_step["plain_ms"],
+            "bound_ms": fv1_step["bound_ms"],
+            "bound_by": fv1_step["bound_by"],
+            "library_ms": None,
+            "paths": {
+                "1ply": {"launches": stats["fused_value_launches"], **fv1_step},
+                "2ply": {"launches": stats2["fused_value_launches"], **fv2_step},
+            },
+            "ok": True,
+        },
+        {
+            "name": "nd_tail",
+            "route": "cuda",
+            "source": ND_SOURCE,
+            "replaces": ND_REPLACES,
+            "launches": stats2["nd_tail_launches"],
+            "max_abs_err": nd_err,
+            # one 2-ply step's 15 launches at [4096 rows, K = 96], summed
+            "ms": nd_step["ms"],
+            "plain_ms": nd_step["plain_ms"],
+            "bound_ms": nd_step["bound_ms"],
+            "bound_by": nd_step["bound_by"],
+            "library_ms": None,
+            "ms_per_launch": nd_step["ms"] / nd_step["calls_per_step"],
+            "wrapper_ms": nd_step["wrapper_ms"],
+            "ok": True,
+        },
+    ]
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -8,9 +8,12 @@ reference, which stays as it is) module for module:
     encoder/  Tesauro-198 features
     model/    the 198 -> h -> 1 sigmoid value net and .pth load/save
     ops/      the fused board -> value kernel (CUDA C++ for sm_90a) and its
-              plain PyTorch version
+              plain PyTorch version; the shared nvcc build helper
+    experimental/  the fused non-doubles tail kernel (CUDA C++ for sm_90a)
+              and its plain PyTorch version (the 2-ply reply path)
     env/      the batched environment
-    actor/    the 1-ply self-play rollout step (split-planes production path)
+    twoply/   the 2-ply expectimax rerank
+    actor/    the self-play rollout step: 1-ply split planes, or 2-ply
 
 It imports torch and numpy only. Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; without a card they raise instead of running

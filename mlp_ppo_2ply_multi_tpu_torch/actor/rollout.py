@@ -1,29 +1,35 @@
-"""Batched 1-ply self-play actor: movegen -> values -> softmax(V/T) sampling
--> env step, for every game in lockstep.
+"""Batched self-play actor: movegen -> values -> sampling -> env step, for
+every game in lockstep.
 
-Port of the split-planes production path of
-``mlp_ppo_2ply_multi_tpu/actor/rollout.py`` (``Config.production()``:
-``split_planes=True``, ``fused_actor_kernel=True``, ``actor_tier_width=96``):
+Port of ``mlp_ppo_2ply_multi_tpu/actor/rollout.py``, two of its branches:
 
-1. ``legal_moves_split`` enumerates the moves as three planes;
-2. the observation value ``value_net.forward(encode_board(...))``;
-3. two-tier candidate evaluation (``_select_action_split``): the first
-   ``tier`` valid slots of every game through ``fused_value``, and the wide
-   games at full width on a batch/``actor_tier_wide_div`` sub-batch through
-   ``fused_value`` again;
-4. sampling ``argmax(logits + gumbel)`` — exactly what
-   ``jax.random.categorical`` computes (both argmaxes return the first
-   maximum on ties);
-5. ``step_chosen``, then ``reset_where`` in continuous mode.
+* 1-ply split planes (``Config.production()``: ``split_planes=True``,
+  ``fused_actor_kernel=True``, ``actor_tier_width=96``):
 
-Randomness is injected through ``StepNoise``. Without one, a step draws its
-noise from the caller's ``torch.Generator`` on the device. The other
-branches of the JAX ``rollout_step`` (merged movegen, 2-ply, tiered) raise
-``NotImplementedError``.
+  1. ``legal_moves_split`` enumerates the moves as three planes;
+  2. the observation value ``value_net.forward(encode_board(...))``;
+  3. two-tier candidate evaluation (``_select_action_split``): the first
+     ``tier`` valid slots of every game through ``fused_value``, and the
+     wide games at full width on a batch/``actor_tier_wide_div`` sub-batch
+     through ``fused_value`` again;
+  4. sampling ``argmax(logits + gumbel)`` — exactly what
+     ``jax.random.categorical`` computes (both argmaxes return the first
+     maximum on ties);
+  5. ``step_chosen``, then ``reset_where`` in continuous mode.
+
+* 2-ply (``twoply.enabled``, ``Config.production_twoply()``): the merged
+  ``legal_moves``, ``twoply.expectimax.select_action_2ply`` (the top-4 1-ply
+  candidates reranked by the expected opponent reply), ``vec_env.step``,
+  then ``reset_where``.
+
+Randomness is injected through ``StepNoise`` (1-ply) or ``TwoPlyNoise``
+(2-ply). Without one, a step draws its noise from the caller's
+``torch.Generator`` on the device. The merged 1-ply branch and the tiered
+pipeline raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -41,11 +47,13 @@ from mlp_ppo_2ply_multi_tpu_torch.engine.movegen2 import (
     SplitMoves,
     _select_set_bits,
     _take0,
+    legal_moves,
     legal_moves_split,
 )
 from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
 from mlp_ppo_2ply_multi_tpu_torch.model import value_net
 from mlp_ppo_2ply_multi_tpu_torch.ops.fused_value import fused_value
+from mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax import select_action_2ply
 
 _NEG = -1e9
 
@@ -77,6 +85,16 @@ class StepNoise(NamedTuple):
     reset_first: torch.Tensor  # int [B, 2] non-double first rolls
 
 
+class TwoPlyNoise(NamedTuple):
+    """All randomness of one 2-ply step, injectable for parity runs."""
+
+    gumbel_2ply: torch.Tensor  # f32 [B, k] rerank sampling noise
+    gumbel_1ply: torch.Tensor  # f32 [B, W] 1-ply fallback sampling noise
+    next_dice: torch.Tensor  # int [B, 2] dice adopted by advancing games
+    reset_opener: torch.Tensor  # int [B, 2] non-double opening rolls
+    reset_first: torch.Tensor  # int [B, 2] non-double first rolls
+
+
 def _split_shapes(batch: int, cfg: Config) -> Tuple[int, int, int]:
     """(tier, wn, W) of the split-planes actor at this batch: W is the merged
     slot width of ``legal_moves_split`` (the doubles plane is a_max wide)."""
@@ -96,8 +114,18 @@ def gumbel(
 
 def draw_noise(
     batch: int, cfg: Config, gen: Optional[torch.Generator], device: torch.device
-) -> StepNoise:
+) -> Union[StepNoise, TwoPlyNoise]:
+    """The step's noise: a TwoPlyNoise when 2-ply is enabled, else a
+    StepNoise. W is the merged slot width ``max(a_max, nd_dedup_k)``."""
     tier, wn, w = _split_shapes(batch, cfg)
+    if cfg.twoply.enabled:
+        return TwoPlyNoise(
+            gumbel_2ply=gumbel((batch, cfg.twoply.top_k_candidates), gen, device),
+            gumbel_1ply=gumbel((batch, w), gen, device),
+            next_dice=vec_env.roll_dice(gen, (batch,), device),
+            reset_opener=vec_env.roll_nondouble(gen, (batch,), device),
+            reset_first=vec_env.roll_nondouble(gen, (batch,), device),
+        )
     return StepNoise(
         gumbel_t1=gumbel((batch, tier), gen, device),
         gumbel_t2=gumbel((wn, w), gen, device),
@@ -190,55 +218,66 @@ def rollout_step(
     temperature,
     cfg: Config,
     continuous: bool,
-    noise: Optional[StepNoise] = None,
+    noise: Union[StepNoise, TwoPlyNoise, None] = None,
     gen: Optional[torch.Generator] = None,
     device: DeviceLike = None,
 ) -> Tuple[vec_env.EnvState, Transition]:
-    """One lockstep self-play step for the whole batch (split-planes path).
+    """One lockstep self-play step for the whole batch: the 2-ply path when
+    ``cfg.twoply.enabled``, else the 1-ply split-planes path.
 
     ``state`` and ``params`` must lie on ``device`` (default ``cuda``).
-    ``noise`` injects the step's randomness; without it the step draws
-    from ``gen`` on the device."""
+    ``noise`` (a TwoPlyNoise for 2-ply, else a StepNoise) injects the step's
+    randomness; without it the step draws from ``gen`` on the device."""
     dev = resolve_device(device)
     check_on(state.board.data, dev, "state")
     check_on(params["w1"], dev, "params")
-    if cfg.twoply.enabled:
-        raise NotImplementedError(
-            "2-ply selection (twoply/expectimax.py) is ported in a later slice"
-        )
-    if cfg.movegen.tiered:
-        raise NotImplementedError(
-            "the rejected tiered pipeline (experimental/tiered.py) is ported last"
-        )
-    if not cfg.movegen.split_planes:
-        raise NotImplementedError(
-            "the merged legal_moves path is ported in a later slice (with 2-ply)"
-        )
-    if not (cfg.model.fused_actor_kernel and cfg.model.actor_tier_width):
-        raise NotImplementedError(
-            "split planes need the tiered fused actor; the unfused select_action "
-            "is ported in a later slice"
-        )
+    if not cfg.twoply.enabled:
+        if cfg.movegen.tiered:
+            raise NotImplementedError(
+                "the rejected tiered pipeline (experimental/tiered.py) is ported last"
+            )
+        if not cfg.movegen.split_planes:
+            raise NotImplementedError(
+                "the 1-ply actor over the merged legal_moves is not ported"
+            )
+        if not (cfg.model.fused_actor_kernel and cfg.model.actor_tier_width):
+            raise NotImplementedError(
+                "split planes need the tiered fused actor; the unfused "
+                "select_action is not ported"
+            )
     b = state.player.shape[0]
     if noise is None:
         noise = draw_noise(b, cfg, gen, dev)
+    want = TwoPlyNoise if cfg.twoply.enabled else StepNoise
+    if not isinstance(noise, want):
+        raise TypeError(f"this step takes a {want.__name__}, got {type(noise).__name__}")
     temperature = torch.as_tensor(temperature, dtype=torch.float32, device=dev)
 
-    sm = legal_moves_split(state.board, state.player, state.dice, cfg.movegen)
-    side0 = cfg.train.td_mode == "side0"
-    cand_flag = (1 - state.player) if side0 else state.player
-    sgn = (
-        torch.where(state.player == 0, 1.0, -1.0).to(torch.float32)
-        if side0 else None
-    )
-    v_obs = value_net.forward(
-        params, encode_board(state.board, state.player), cfg.model
-    )
-    _, chosen, tier_ov = _select_action_split(
-        params, sm, cand_flag, sgn, noise.gumbel_t1, noise.gumbel_t2,
-        temperature, cfg,
-    )
-    res = vec_env.step_chosen(state, sm.count, chosen, noise.next_dice, cfg.env)
+    if cfg.twoply.enabled:
+        moves = legal_moves(state.board, state.player, state.dice, cfg.movegen)
+        action, v_obs = select_action_2ply(
+            params, state, moves, noise.gumbel_2ply, noise.gumbel_1ply,
+            temperature, cfg,
+        )
+        res = vec_env.step(state, moves, action, noise.next_dice, cfg.env)
+        count, overflow = moves.count, moves.overflow
+    else:
+        sm = legal_moves_split(state.board, state.player, state.dice, cfg.movegen)
+        side0 = cfg.train.td_mode == "side0"
+        cand_flag = (1 - state.player) if side0 else state.player
+        sgn = (
+            torch.where(state.player == 0, 1.0, -1.0).to(torch.float32)
+            if side0 else None
+        )
+        v_obs = value_net.forward(
+            params, encode_board(state.board, state.player), cfg.model
+        )
+        _, chosen, tier_ov = _select_action_split(
+            params, sm, cand_flag, sgn, noise.gumbel_t1, noise.gumbel_t2,
+            temperature, cfg,
+        )
+        res = vec_env.step_chosen(state, sm.count, chosen, noise.next_dice, cfg.env)
+        count, overflow = sm.count, tier_ov | sm.overflow
 
     trunc = ~res.state.game_over & (res.state.step_count >= cfg.env.max_timesteps)
     t = Transition(
@@ -252,8 +291,8 @@ def rollout_step(
         win_type=res.win_type,
         close_out=res.close_out_bonus,
         prime=res.prime_bonus,
-        num_moves=sm.count,
-        overflow=tier_ov | sm.overflow,
+        num_moves=count,
+        overflow=overflow,
     )
     new_state = res.state
     if continuous:

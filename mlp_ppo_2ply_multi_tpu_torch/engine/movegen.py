@@ -172,6 +172,26 @@ def ctx_entry_axis(ctx: SlotCtx) -> SlotCtx:
     )
 
 
+class SlotStats(NamedTuple):
+    """Die-independent mover-side board statistics consumed by slot_valid;
+    computed once per board and combined with several dice
+    (``slot_valid_stats``) by the 2-ply scorer, which tests each first-die
+    child set against five second dice."""
+
+    own: torch.Tensor  # int8[..., 24]
+    kind: torch.Tensor  # int8[...]
+    last: torch.Tensor  # int64[...] farthest occupied home point
+
+
+def slot_stats(board: Board, player: torch.Tensor) -> SlotStats:
+    p = _bcast(player, board.batch_shape)
+    return SlotStats(
+        own=player_points(board, p),
+        kind=board_state_kind(board, p),
+        last=farthest_point(board, p),
+    )
+
+
 def slot_valid(
     board: Board, player: torch.Tensor, die: torch.Tensor, ctx: SlotCtx
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -181,12 +201,17 @@ def slot_valid(
 
     Returns (valid bool[..., 27], farthest occupied home point int64[...]).
     """
-    bs = board.batch_shape
+    return slot_valid_stats(slot_stats(board, player), player, die, ctx)
+
+
+def slot_valid_stats(
+    stats: SlotStats, player: torch.Tensor, die: torch.Tensor, ctx: SlotCtx
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``slot_valid`` from precomputed SlotStats."""
+    bs = stats.kind.shape
     p = _bcast(player, bs)
     d = _bcast(die, bs)
-    own = player_points(board, p)
-    kind = board_state_kind(board, p)
-    last = farthest_point(board, p)
+    own, kind, last = stats.own, stats.kind, stats.last
 
     normal_ok = ((kind == 0) | (kind == 2))[..., None] & (own > 0) & ctx.move_ok
     bar_ok = (kind == 1) & ctx.entry_free

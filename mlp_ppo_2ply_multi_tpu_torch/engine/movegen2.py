@@ -1,4 +1,5 @@
-"""Sortless full-move enumeration, the path ``legal_moves_split`` takes.
+"""Sortless full-move enumeration: ``legal_moves_split`` (the 1-ply actor),
+the merged ``legal_moves`` and the batched enumerations of the 2-ply scorer.
 
 Port of ``mlp_ppo_2ply_multi_tpu/engine/movegen2.py`` (see its module
 docstring for the algorithms and their reference citations):
@@ -7,9 +8,10 @@ docstring for the algorithms and their reference citations):
   candidate cells whose index order IS the reference's insertion order. The
   valid ones are compacted in order, their afterstates built, duplicates
   dropped by canonical delta signature (first occurrence kept), then the
-  max-submove filter and the Q7 cap apply. The tail runs two-tier: width
+  max-submove filter and the Q7 cap apply. The tail runs two-tier (width
   ``nd_tier`` for every game, full width ``nd_dedup_k`` on a sub-batch of the
-  wide games.
+  wide games), as one fused kernel (``experimental/nd_tail.py``, the 2-ply
+  reply path), or as one plain full-width pass.
 * Doubles: canonical multiset enumeration (submove ranks nondecreasing), so
   no duplicates arise; run on a compacted sub-batch of the doubles games.
 
@@ -17,15 +19,16 @@ The JAX version selects the k-th set bit with compare-reduces and one-hot
 matmuls because binary search and row gathers are slow on the TPU. Here a
 select is ``cumsum`` + ``torch.searchsorted`` and every take is a gather;
 integer results are bit-identical. Slots that are not ok (beyond a row's
-count) hold whatever the clipped indices produce, as in JAX: consumers read
-only valid slots.
+count) hold whatever the clipped indices produce: consumers read only valid
+slots.
 
-The merged ``legal_moves``, the 2-ply helpers (``die_tables``,
-``enumerate_*_raw*``) and ``dd_tier`` are not ported yet.
+Not ported: the Gram dedup (``nd_sig_dedup=False``), ``dd_tier`` and the
+value-first ``enumerate_nondoubles_raw*``; they raise or are absent.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,6 +39,7 @@ from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import (
     N_SLOTS,
     MoveSet,
     SlotCtx,
+    SlotStats,
     SlotTable,
     board_expand,
     board_take,
@@ -45,6 +49,7 @@ from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import (
     slot_params,
     slot_table,
     slot_valid,
+    slot_valid_stats,
 )
 
 
@@ -94,20 +99,77 @@ class _Pass(NamedTuple):
     single_valid: torch.Tensor
 
 
-def _run_pass(board: Board, player, d_first, d_second) -> _Pass:
-    """One ordering pass: first-ply slot table and children, second-ply
-    validity from the mover-side-only slot_valid with a root SlotCtx."""
-    s1 = slot_table(board, player, d_first)
+def _run_pass_pre(
+    s1: SlotTable,
+    b1: Board,
+    player,
+    d_second,
+    ctx: Optional[SlotCtx] = None,
+    stats: Optional[SlotStats] = None,
+) -> _Pass:
+    """A pass from a precomputed first-die slot table and children
+    (``die_tables``). The second ply needs only validity: with a root SlotCtx
+    for ``d_second`` it is the mover-side-only slot_valid (from the children's
+    precomputed SlotStats when ``stats`` is given, as the 2-ply scorer does),
+    without one the full slot_table."""
     p27 = player[..., None]
-    b1 = apply_submove(
-        board_expand(board, N_SLOTS), p27, s1.start, s1.end, s1.hits, s1.valid
-    )
-    ctx = slot_ctx(board, player, d_second)
-    s2_valid, _ = slot_valid(b1, p27, d_second[..., None], ctx_entry_axis(ctx))
+    if stats is not None:
+        if ctx is None:
+            raise ValueError("stats= needs ctx=")
+        s2_valid, _ = slot_valid_stats(
+            stats, p27, d_second[..., None], ctx_entry_axis(ctx)
+        )
+    elif ctx is None:
+        s2_valid = slot_table(b1, p27, d_second[..., None]).valid
+    else:
+        s2_valid, _ = slot_valid(b1, p27, d_second[..., None], ctx_entry_axis(ctx))
     pair_valid = s1.valid[..., None] & s2_valid
     any_pair = pair_valid.flatten(-2).any(-1)
     single_valid = s1.valid & ~any_pair[..., None]
     return _Pass(s1, b1, s2_valid, pair_valid, any_pair, single_valid)
+
+
+def _run_pass(board: Board, player, d_first, d_second) -> _Pass:
+    """One ordering pass: first-ply slot table and children, second-ply
+    validity from the mover-side-only slot_valid with a root SlotCtx."""
+    s1 = slot_table(board, player, d_first)
+    b1 = apply_submove(
+        board_expand(board, N_SLOTS), player[..., None], s1.start, s1.end,
+        s1.hits, s1.valid,
+    )
+    return _run_pass_pre(
+        s1, b1, player, d_second, ctx=slot_ctx(board, player, d_second)
+    )
+
+
+def _six_dies(board: Board, player: torch.Tensor):
+    """The board, player and dies 1..6 broadcast on a new leading [6] axis."""
+    bs = board.batch_shape
+    dev = board.data.device
+    b6 = Board(data=board.data[None].expand(6, *board.data.shape))
+    p6 = torch.broadcast_to(torch.as_tensor(player).to(torch.int64), (6, *bs))
+    dies = torch.arange(1, 7, device=dev).reshape(6, *([1] * len(bs)))
+    return b6, p6, dies.expand(6, *bs)
+
+
+def die_tables(board: Board, player: torch.Tensor) -> Tuple[SlotTable, Board]:
+    """First-ply slot tables and children for all six die values in one
+    batched pass: SlotTable fields [6, ..., 27], children [6, ..., 27]. The
+    2-ply scorer's 15 fixed non-double rolls need only these six (die ->
+    table, children) results, not 30."""
+    b6, p6, d6 = _six_dies(board, player)
+    s1 = slot_table(b6, p6, d6)
+    b1 = apply_submove(
+        board_expand(b6, N_SLOTS), p6[..., None], s1.start, s1.end, s1.hits,
+        s1.valid,
+    )
+    return s1, b1
+
+
+def die_ctxs(board: Board, player: torch.Tensor) -> SlotCtx:
+    """Root SlotCtx for all six die values, fields on a leading [6] axis
+    (the companion of ``die_tables``)."""
+    return slot_ctx(*_six_dies(board, player))
 
 
 _SIG_SENT = 31  # sorts after every real cell id (0..25)
@@ -203,7 +265,8 @@ def _nd_tail(
     afterstates, first-occurrence dedup (handle_move_types.py:196-221),
     max-submove filter AFTER dedup (generate_all_moves.py:69-90), Q7 cap in
     survivor-rank order without a final compaction. Returns (afterstates
-    [..., K], keep mask, pre-cap survivor total int32)."""
+    [..., K], keep mask, pre-cap survivor total int32, and "present
+    2-submove candidate" bool[..., K])."""
     after, kok, kpair, sig = _nd_tail_front(
         b0, b1a, b1b, valid, player, d_hi, d_lo, K
     )
@@ -212,17 +275,27 @@ def _nd_tail(
     keep = keep & (kpair | ~has_pair[..., None])
     rank = torch.cumsum(keep.to(torch.int32), -1, dtype=torch.int32)
     pre_cap_total = rank[..., -1]
-    return after, keep & (rank <= a_max), pre_cap_total
+    return after, keep & (rank <= a_max), pre_cap_total, kok & kpair
 
 
-def _nd_candidates(board: Board, player: torch.Tensor, dice: torch.Tensor):
+def _nd_candidates(
+    board: Board,
+    player: torch.Tensor,
+    dice: torch.Tensor,
+    passes: Optional[Tuple[_Pass, _Pass]] = None,
+):
     """The two expansion passes and the 1512-cell candidate validity bits in
     exact reference insertion order (generate_all_moves.py:25-53), with the
-    reverse-order skip (:40-50). Returns (pa, pb, valid, d_hi, d_lo)."""
+    reverse-order skip (:40-50). ``passes`` supplies precomputed (high-first,
+    low-first) passes built from ``die_tables``. Returns (pa, pb, valid,
+    d_hi, d_lo)."""
     d_hi = torch.maximum(dice[..., 0], dice[..., 1]).to(torch.int64)
     d_lo = torch.minimum(dice[..., 0], dice[..., 1]).to(torch.int64)
-    pa = _run_pass(board, player, d_hi, d_lo)
-    pb = _run_pass(board, player, d_lo, d_hi)
+    if passes is None:
+        pa = _run_pass(board, player, d_hi, d_lo)
+        pb = _run_pass(board, player, d_lo, d_hi)
+    else:
+        pa, pb = passes
     skip_b = (~pa.any_pair) & (_popcount(pa.single_valid) == 1)
     pvB = pb.pair_valid & ~skip_b[..., None, None]
     svB = pb.single_valid & ~skip_b[..., None]
@@ -261,13 +334,13 @@ def _nd_two_tier(
     K, T = cfg.nd_dedup_k, cfg.nd_tier
     n_pre = _popcount(valid)
     n = valid.shape[0]
-    after_n, keep_n, pct_n = _nd_tail(
+    after_n, keep_n, pct_n, _ = _nd_tail(
         board, pa.b1, pb.b1, valid, player, d_hi, d_lo, T, cfg.a_max
     )
     wide = n_pre > T
     wn = max(8, n // cfg.nd_wide_div)
     sel, sel_ok = _select_set_bits(wide, wn)
-    after_w, keep_w, pct_w = _nd_tail(
+    after_w, keep_w, pct_w, _ = _nd_tail(
         _take0(board, sel),
         _take0(pa.b1, sel),
         _take0(pb.b1, sel),
@@ -284,6 +357,51 @@ def _nd_two_tier(
     pct = torch.where(in_sub, pct_w[slot], pct_n)
     overflow = (in_sub & ((n_pre > K) | (pct > cfg.a_max))) | (wide & ~in_sub)
     return NdPlanes(after_n, keep_n, after_w, keep_w, in_sub, slot, overflow)
+
+
+def enumerate_nondoubles(
+    board: Board,
+    player: torch.Tensor,
+    dice: torch.Tensor,
+    cfg: MoveGenConfig,
+    passes: Optional[Tuple[_Pass, _Pass]] = None,
+) -> MoveSet:
+    """Sortless non-doubles enumeration in exact reference order
+    (generate_all_moves.py:25-53). ``passes`` supplies precomputed
+    (high-first, low-first) passes from ``die_tables`` (the 2-ply scorer).
+
+    The tail runs two-tier when ``0 < nd_tier < nd_dedup_k``; else, on a flat
+    batch with ``nd_tail_kernel``, as ``experimental.nd_tail.nd_tail_fused``
+    (the CUDA kernel on a card); else as one plain full-width pass."""
+    if not cfg.nd_sig_dedup:
+        raise NotImplementedError("the Gram dedup path is not ported")
+    pa, pb, valid, d_hi, d_lo = _nd_candidates(board, player, dice, passes)
+    K, T = cfg.nd_dedup_k, cfg.nd_tier
+    if T and T < K and valid.dim() == 2:
+        pl = _nd_two_tier(board, pa, pb, valid, player, d_hi, d_lo, cfg)
+        narrow = _pad_entries(MoveSet(pl.after_n, pl.keep_n, None), K)
+        after = board_where(pl.in_sub[:, None], _take0(pl.after_w, pl.slot), narrow.boards)
+        keep = torch.where(pl.in_sub[:, None], pl.keep_w[pl.slot], narrow.valid)
+        overflow = pl.overflow
+    elif cfg.nd_tail_kernel and valid.dim() == 2:
+        from mlp_ppo_2ply_multi_tpu_torch.experimental.nd_tail import nd_tail_fused
+
+        bs = board.batch_shape
+        after_d, keep, n_pre, pct, _ = nd_tail_fused(
+            valid, pa.b1.data, pb.b1.data, board.data,
+            torch.broadcast_to(torch.as_tensor(player), bs),
+            torch.broadcast_to(d_hi, bs), torch.broadcast_to(d_lo, bs),
+            K, cfg.a_max,
+        )
+        after = Board(data=after_d)
+        overflow = (n_pre > K) | (pct > cfg.a_max)
+    else:
+        after, keep, pct, _ = _nd_tail(
+            board, pa.b1, pb.b1, valid, player, d_hi, d_lo, K, cfg.a_max
+        )
+        # candidates lost to the dedup-slot cap or the Q7 presented cap
+        overflow = (_popcount(valid) > K) | (pct > cfg.a_max)
+    return MoveSet(boards=after, valid=keep, count=_popcount(keep), overflow=overflow)
 
 
 # ---------------------------------------------------------------------------
@@ -379,13 +497,19 @@ def _pad_entries(ms: MoveSet, width: int) -> MoveSet:
 
 
 def enumerate_doubles(
-    board: Board, player: torch.Tensor, die: torch.Tensor, cfg: MoveGenConfig
+    board: Board,
+    player: torch.Tensor,
+    die: torch.Tensor,
+    cfg: MoveGenConfig,
+    s1: Optional[SlotTable] = None,
 ) -> MoveSet:
-    """Canonical doubles enumeration — zero sorts, zero dedup. The three
-    level expansions share one root SlotCtx (the die is constant for the
-    whole turn). Flat [n] batch."""
+    """Canonical doubles enumeration — zero sorts, zero dedup. ``s1``
+    supplies a precomputed root slot table for this die (``die_tables``).
+    The three level expansions share one root SlotCtx (the die is constant
+    for the whole turn). Flat [n] batch."""
     ctx = slot_ctx(board, player, die)
-    s1 = slot_table(board, player, die)
+    if s1 is None:
+        s1 = slot_table(board, player, die)
     root_cc = _popcount(s1.valid)
     idx1, ok1 = _select_set_bits(s1.valid, cfg.w1)
     b0 = board_expand(board, cfg.w1)
@@ -452,6 +576,118 @@ def enumerate_doubles(
         | cap_ov(shorts1.valid, use1, a_max)
     )
     return out._replace(overflow=overflow)
+
+
+# ---------------------------------------------------------------------------
+# Any batch shape, and the merged legal moves (the 2-ply actor's input)
+# ---------------------------------------------------------------------------
+
+
+def _tmap(fn, tree):
+    """``fn`` on every tensor of a tensor or a nested NamedTuple (Board,
+    SlotTable, _Pass)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return type(tree)(*(_tmap(fn, x) for x in tree))
+
+
+def _flatten_batch(board: Board, player, dice, dice_tail: Tuple[int, ...]):
+    """(flatten fn, flat board, flat int64 player [n], flat int64 dice
+    [n, *dice_tail]) for a board batch of any shape; player and dice
+    broadcast into it."""
+    bs = board.batch_shape
+    n = math.prod(bs)
+    dev = board.data.device
+    flat = lambda t: _tmap(lambda a: a.reshape(n, *a.shape[len(bs):]), t)
+    as64 = lambda x: torch.as_tensor(x, device=dev).to(torch.int64)
+    fp = torch.broadcast_to(as64(player), bs).reshape(n)
+    fd = torch.broadcast_to(as64(dice), (*bs, *dice_tail)).reshape(n, *dice_tail)
+    return flat, flat(board), fp, fd
+
+
+def _unflatten_moveset(ms: MoveSet, batch_shape) -> MoveSet:
+    a = ms.valid.shape[-1]
+    return MoveSet(
+        boards=Board(data=ms.boards.data.reshape(*batch_shape, a, ms.boards.data.shape[-1])),
+        valid=ms.valid.reshape(*batch_shape, a),
+        count=ms.count.reshape(batch_shape),
+        overflow=None if ms.overflow is None else ms.overflow.reshape(batch_shape),
+    )
+
+
+def enumerate_nondoubles_batched(
+    board: Board,
+    player: torch.Tensor,
+    dice: torch.Tensor,
+    cfg: MoveGenConfig,
+    passes: Optional[Tuple[_Pass, _Pass]] = None,
+) -> MoveSet:
+    """``enumerate_nondoubles`` over any batch shape (player and dice [..., 2]
+    broadcast); the 2-ply scorer's fixed non-double rolls."""
+    flat, fb, fp, fd = _flatten_batch(board, player, dice, (2,))
+    fpasses = None if passes is None else (flat(passes[0]), flat(passes[1]))
+    ms = enumerate_nondoubles(fb, fp, fd, cfg, fpasses)
+    return _unflatten_moveset(ms, board.batch_shape)
+
+
+def enumerate_doubles_batched(
+    board: Board,
+    player: torch.Tensor,
+    die: torch.Tensor,
+    cfg: MoveGenConfig,
+    s1: Optional[SlotTable] = None,
+) -> MoveSet:
+    """``enumerate_doubles`` over any batch shape, padded to the non-doubles
+    width ``max(a_max, nd_dedup_k)``."""
+    flat, fb, fp, fd = _flatten_batch(board, player, die, ())
+    ms = enumerate_doubles(fb, fp, fd, cfg, None if s1 is None else flat(s1))
+    ms = _pad_entries(ms, max(cfg.a_max, cfg.nd_dedup_k))
+    return _unflatten_moveset(ms, board.batch_shape)
+
+
+def legal_moves(
+    board: Board, player: torch.Tensor, dice: torch.Tensor, cfg: MoveGenConfig
+) -> MoveSet:
+    """Merged legal moves over any batch shape: the non-doubles set, and the
+    doubles set on a compacted batch/``dd_subbatch_div`` sub-batch of the
+    games that rolled doubles (the whole batch when n <= 64 or the divisor
+    is 0), merged per game at width ``max`` of the two. A doubles game
+    beyond the sub-batch presents zero moves and is flagged as overflow."""
+    if cfg.dd_tier:
+        raise NotImplementedError("the dd_tier path is not ported")
+    bs = board.batch_shape
+    _, fboard, fplayer, fdice = _flatten_batch(board, player, dice, (2,))
+    n = fplayer.shape[0]
+    is_double = fdice[:, 0] == fdice[:, 1]
+
+    nd = enumerate_nondoubles(fboard, fplayer, fdice, cfg)
+    if n <= 64 or cfg.dd_subbatch_div <= 0:
+        dd = enumerate_doubles(fboard, fplayer, fdice[:, 0], cfg)
+    else:
+        w_dd = max(8, -(-n // cfg.dd_subbatch_div))
+        sel_idx, sel_ok = _select_set_bits(is_double, w_dd)
+        sub = enumerate_doubles(
+            _take0(fboard, sel_idx), fplayer[sel_idx], fdice[sel_idx, 0], cfg
+        )
+        sub_valid = sub.valid & sel_ok[:, None]
+        raw_slot = torch.cumsum(is_double.to(torch.int32), 0, dtype=torch.int32) - 1
+        in_range = raw_slot < w_dd
+        slot = raw_slot.clamp(0, w_dd - 1)
+        dd = MoveSet(
+            boards=_take0(sub.boards, slot),
+            valid=sub_valid[slot] & in_range[:, None],
+            count=torch.where(in_range, sub.count[slot], 0),
+            overflow=torch.where(in_range, sub.overflow[slot], True),
+        )
+    width = max(nd.valid.shape[-1], dd.valid.shape[-1])
+    nd, dd = _pad_entries(nd, width), _pad_entries(dd, width)
+    out = MoveSet(
+        boards=board_where(is_double[:, None].expand(n, width), dd.boards, nd.boards),
+        valid=torch.where(is_double[:, None], dd.valid, nd.valid),
+        count=torch.where(is_double, dd.count, nd.count),
+        overflow=torch.where(is_double, dd.overflow, nd.overflow),
+    )
+    return _unflatten_moveset(out, bs)
 
 
 # ---------------------------------------------------------------------------

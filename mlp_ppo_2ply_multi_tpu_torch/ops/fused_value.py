@@ -17,8 +17,7 @@ Two implementations of one function, with the TPU kernel's rounding points
   kernel's oracle. Its matmuls run in full f32: TF32 must stay off
   (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
 * the CUDA kernel ``csrc/fused_value.cu`` (sm_90a), built with ``nvcc`` at
-  first use into ``_build/`` (keyed by a hash of the source) and bound with
-  ``ctypes``.
+  first use (``ops/_cuda_build.py``) and bound with ``ctypes``.
 
 ``fused_value`` routes a CPU tensor to the plain version and a CUDA tensor
 to the kernel, and raises on anything else.
@@ -26,25 +25,17 @@ to the kernel, and raises on anything else.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
+
+from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import CudaKernel
 
 N_CELLS = 52  # 48 point cells + bar x2 + off x2 (engine/board.py layout)
 N_REP = 4 * N_CELLS  # 208
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "fused_value.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "_build"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
 
 
 def recombine_params(params: Dict[str, torch.Tensor], dtype=torch.bfloat16):
@@ -104,69 +95,17 @@ def fused_value_plain(
     return (hid @ w2r.float().T)[..., 0] + b2
 
 
-class _Kernel:
-    """The built CUDA library, its build record and the launch count."""
-
-    def __init__(self) -> None:
-        self.lib: Optional[ctypes.CDLL] = None
-        self.build_info: Dict[str, object] = {}
-        self.launches = 0
-
-    def load(self) -> ctypes.CDLL:
-        if self.lib is None:
-            so, self.build_info = _build()
-            lib = ctypes.CDLL(str(so))
-            lib.fused_value_launch.argtypes = [ctypes.c_void_p] * 8 + [
-                ctypes.c_longlong,
-                ctypes.c_void_p,
-            ]
-            lib.fused_value_launch.restype = ctypes.c_int
-            lib.fused_value_hidden.argtypes = []
-            lib.fused_value_hidden.restype = ctypes.c_int
-            self.lib = lib
-        return self.lib
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.fused_value_launch.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong,
+        ctypes.c_void_p,
+    ]
+    lib.fused_value_launch.restype = ctypes.c_int
+    lib.fused_value_hidden.argtypes = []
+    lib.fused_value_hidden.restype = ctypes.c_int
 
 
-KERNEL = _Kernel()
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and (Path(home) / "bin" / "nvcc").exists():
-        return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default prefix
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def _build():
-    """Compile csrc/fused_value.cu into _build/ unless a library built from
-    the same source and flags is there. Returns (path, build record)."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"fused_value_{tag}.so"
-    log = so.with_suffix(".ptxas.txt")  # what -Xptxas -v said at build time
-    if so.exists():
-        ptxas = log.read_text() if log.exists() else ""
-        return so, {"path": str(so), "cached": True, "ptxas": ptxas}
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    ptxas = (proc.stdout + proc.stderr).strip()
-    log.write_text(ptxas)
-    os.replace(tmp, so)
-    return so, {"path": str(so), "cached": False, "seconds": secs, "ptxas": ptxas}
+KERNEL = CudaKernel(_SRC, _bind)
 
 
 def kernel_operands(boards_data, flag, params) -> Tuple[torch.Tensor, ...]:

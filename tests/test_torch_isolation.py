@@ -39,6 +39,21 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     assert out.stdout.startswith("ok")
 
 
+def test_isolation_covers_every_port_module():
+    """The checks above walk the whole package and chip_smoke.py: the 2-ply
+    modules and both kernels' wrappers are among them."""
+    for m in (
+        "mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax",
+        "mlp_ppo_2ply_multi_tpu_torch.experimental.nd_tail",
+        "mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build",
+        "mlp_ppo_2ply_multi_tpu_torch.ops.fused_value",
+        "mlp_ppo_2ply_multi_tpu_torch.engine.movegen2",
+        "mlp_ppo_2ply_multi_tpu_torch.actor.rollout",
+    ):
+        assert m in MODULES, m
+    assert (ROOT / "chip_smoke.py").exists()
+
+
 def test_port_sources_name_no_jax_import():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
@@ -67,6 +82,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         rollout.rollout_step(params, st, 1.0, cfg, True)
     with pytest.raises(RuntimeError):
         rollout.rollout_loop(params, st, 1.0, cfg, 1)
+    with pytest.raises(RuntimeError):
+        rollout.rollout_step(params, st, 1.0, Config.production_twoply(), True)
     assert resolve_device("cpu").type == "cpu"
 
 

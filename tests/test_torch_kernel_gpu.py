@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card against its plain PyTorch version.
+"""The port's CUDA kernels (fused_value, nd_tail) on the card against their
+plain PyTorch versions.
 
-These tests need a CUDA card and skip elsewhere (the kernel has no CPU
+These tests need a CUDA card and skip elsewhere (the kernels have no CPU
 mode). The file imports torch and the port only, so on the card it runs
 without JAX:
 
@@ -56,3 +57,78 @@ def test_fused_value_kernel_raises_on_what_it_cannot_take():
         fv.fused_value(boards.transpose(0, 1), torch.zeros(2, 8, device=dev), params)
     with pytest.raises(ValueError):
         fv.fused_value(boards, torch.zeros(8, 1, device=dev), value_net.load_checkpoint(CKPT))
+
+
+# ---------------------------------------------------------------------------
+# nd_tail (kernel B2)
+# ---------------------------------------------------------------------------
+
+
+def _random_positions(n, seed, dev):
+    """n positions with 15 checkers a side on disjoint points (some on the
+    bar, some borne off, some all home), player to move and a non-double
+    roll, as the tail's inputs from the port's front half on the card."""
+    import numpy as np
+
+    from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
+    from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
+
+    rng = np.random.default_rng(seed)
+    data = np.zeros((n, 52), np.int8)
+    for r in range(n):
+        home = rng.random() < 0.3  # both sides bearing off
+        perm = rng.permutation(24)
+        for p in (0, 1):
+            if home:
+                base = 18 if p == 0 else 0
+                pts = base + np.nonzero(rng.random(6) < 0.6)[0]
+                pts = pts if len(pts) else np.array([base])
+                off = int(rng.integers(0, 10))
+                bar = 0
+            else:
+                pts = perm[8 * p : 8 * p + 8]
+                off = 0
+                bar = int(rng.random() < 0.15)
+            data[r, 48 + p], data[r, 50 + p] = bar, off
+            for q in rng.choice(pts, size=15 - bar - off):
+                data[r, 24 * p + q] += 1
+    player = torch.as_tensor(rng.integers(0, 2, n), device=dev)
+    pairs = np.array([(a, b) for a in range(1, 7) for b in range(1, 7) if a != b])
+    dice = torch.as_tensor(pairs[rng.integers(0, 30, n)], device=dev)
+    board = Board(torch.as_tensor(data, device=dev))
+    pa, pb, valid, d_hi, d_lo = movegen2._nd_candidates(board, player, dice)
+    return valid, pa.b1.data, pb.b1.data, board.data, player, d_hi, d_lo
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,K,a_max", [(4096, 96, 96), (1000, 288, 64), (37, 8, 4)])
+def test_nd_tail_kernel_matches_plain(rows, K, a_max):
+    """The reply path's shape, a wide K with a cap below it, and a tiny
+    ragged case that cuts most candidates."""
+    from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
+
+    dev = _card()
+    inputs = _random_positions(rows, rows + K, dev)
+    before = nd_tail.KERNEL.launches
+    got = nd_tail.nd_tail_fused(*inputs, K, a_max)
+    assert nd_tail.KERNEL.launches == before + 1
+    want = nd_tail.nd_tail_plain(*inputs, K, a_max)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("after", "keep", "n_pre", "pct", "kpair"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.equal(a, b), name  # `after` too: the kernel clips as the plain version
+    assert int(want[2].max()) > min(K, 40)
+
+
+@pytest.mark.gpu
+def test_nd_tail_kernel_raises_on_what_it_cannot_take():
+    from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
+
+    dev = _card()
+    inputs = list(_random_positions(8, 1, dev))
+    with pytest.raises(ValueError):
+        nd_tail.nd_tail_fused(*inputs, 100000, 96)  # K above the kernel's limit
+    cpu_b0 = list(inputs)
+    cpu_b0[3] = cpu_b0[3].cpu()
+    with pytest.raises(ValueError):
+        nd_tail.nd_tail_fused(*cpu_b0, 96, 96)

@@ -306,13 +306,27 @@ def test_rollout_loop_on_cpu_is_seeded_and_conserves_checkers():
 
 
 def test_rollout_step_rejects_unported_branches():
+    """The merged 1-ply actor and the tiered pipeline still raise; 2-ply is
+    ported (tests/test_torch_twoply*.py): its step runs and refuses the
+    1-ply noise type."""
     base = _cfg(tcfg, "reference")
     params = tV.init_params(base.model)
     st = tE.reset(16, torch.Generator().manual_seed(0), device="cpu")
     for cfg in (
-        base.replace(twoply=dataclasses.replace(base.twoply, enabled=True)),
         base.replace(movegen=dataclasses.replace(base.movegen, split_planes=False)),
         base.replace(movegen=dataclasses.replace(base.movegen, tiered=True)),
     ):
         with pytest.raises(NotImplementedError):
             tR.rollout_step(params, st, 1.0, cfg, True, device="cpu")
+    twoply = base.replace(
+        twoply=dataclasses.replace(base.twoply, enabled=True, reply_a_max=16)
+    )
+    gen = torch.Generator().manual_seed(1)
+    new, t = tR.rollout_step(params, st, 1.0, twoply, True, gen=gen, device="cpu")
+    assert tuple(t.num_moves.shape) == (16,) and bool(t.recorded.any())
+    assert bool(tB.checker_conservation_ok(new.board).all())
+    with pytest.raises(TypeError):
+        tR.rollout_step(
+            params, st, 1.0, twoply, True,
+            noise=tR.draw_noise(16, base, gen, torch.device("cpu")), device="cpu",
+        )
