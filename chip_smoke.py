@@ -39,8 +39,9 @@ any failure exits non-zero:
    bit-equal: keep, n_pre, pct, kpair everywhere, after at kept slots);
 10. main path (2-ply): warm-up, then timed steps; exactly 15 nd_tail and 22
     fused_value launches a step, checkers conserved, values finite;
-11. kernel vs no kernel (2-ply): one state, one noise, nd_tail_kernel on and
-    off: identical decisions and state on every row;
+11. kernel vs no kernel (2-ply): one state, one noise, through the nd_tail
+    kernel and through its plain version swapped in: identical decisions
+    and state on every row;
 12. card vs CPU (2-ply) at B = 32: merged legal moves bit-equal, decisions
     equal but near-ties, identical integer state on agreeing rows;
 13. where the 2-ply time goes: per-stage host times and a torch.profiler
@@ -53,6 +54,7 @@ port beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -106,9 +108,7 @@ def _port():
         raise RuntimeError(f"port imported from {pkg.__file__}, not {ROOT}")
     from mlp_ppo_2ply_multi_tpu_torch.actor import rollout
     from mlp_ppo_2ply_multi_tpu_torch.core.config import Config
-    from mlp_ppo_2ply_multi_tpu_torch.encoder.features import encode_board
     from mlp_ppo_2ply_multi_tpu_torch.engine import board, movegen2
-    from mlp_ppo_2ply_multi_tpu_torch.engine import movegen
     from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
     from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
     from mlp_ppo_2ply_multi_tpu_torch.model import value_net
@@ -116,8 +116,8 @@ def _port():
     from mlp_ppo_2ply_multi_tpu_torch.twoply import expectimax
 
     return dict(
-        rollout=rollout, Config=Config, encode_board=encode_board, board=board,
-        movegen=movegen, movegen2=movegen2, vec_env=vec_env, value_net=value_net,
+        rollout=rollout, Config=Config, board=board,
+        movegen2=movegen2, vec_env=vec_env, value_net=value_net,
         fv=fused_value, nd=nd_tail, X=expectimax,
     )
 
@@ -393,36 +393,55 @@ def phase_card_vs_cpu(P, params, cfg, dev, gen, card):
         raise AssertionError("card and CPU paths disagree")
 
 
-def phase_time_breakdown(P, params, state, cfg, dev, gen, step_ms, card):
-    """Per-stage host times (synchronised), and the device's busy share
-    from a torch.profiler window."""
-    R, mg2, VE = P["rollout"], P["movegen2"], P["vec_env"]
-    b = state.player.shape[0]
-    temp = torch.tensor(cfg.train.initial_temperature, device=dev)
-    stages = dict(noise=0.0, movegen=0.0, obs_value=0.0, select=0.0, env=0.0)
-    n = 8
-    for _ in range(n):
-        marks = [time.perf_counter()]
-        noise = R.draw_noise(b, cfg, gen, dev)
-        _sync(dev); marks.append(time.perf_counter())
-        sm = mg2.legal_moves_split(state.board, state.player, state.dice, cfg.movegen)
-        _sync(dev); marks.append(time.perf_counter())
-        P["value_net"].forward(params, P["encode_board"](state.board, state.player), cfg.model)
-        _sync(dev); marks.append(time.perf_counter())
-        sgn = torch.where(state.player == 0, 1.0, -1.0)
-        _, chosen, _ = R._select_action_split(
-            params, sm, 1 - state.player, sgn, noise.gumbel_t1, noise.gumbel_t2, temp, cfg
-        )
-        _sync(dev); marks.append(time.perf_counter())
-        res = VE.step_chosen(state, sm.count, chosen, noise.next_dice, cfg.env)
-        done = res.done | (~res.state.game_over & (res.state.step_count >= cfg.env.max_timesteps))
-        state = VE.reset_where(done, res.state, noise.reset_opener, noise.reset_first)
-        _sync(dev); marks.append(time.perf_counter())
-        for k, (t0, t1) in zip(stages, zip(marks, marks[1:])):
-            stages[k] += (t1 - t0) * 1e3 / n
-    log(f"[7 time] per-stage ms/step (synchronised): "
-        f"{json.dumps({k: round(v, 3) for k, v in stages.items()})} {card}")
+def stage_times(P, params, state, cfg, dev, gen, n, stages, inner, tag, card):
+    """Per-stage host times of ``n`` real rollout steps. Each (label, module,
+    name) of ``stages`` (the step's top-level calls) and ``inner`` (calls
+    inside one of them) is swapped for a timed copy that synchronises the
+    card before and after it; "other" is the step less its top-level
+    stages."""
+    ms = {label: 0.0 for label, _, _ in stages + inner}
 
+    def timed(label, fn):
+        def run(*args, **kwargs):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync(dev)
+            ms[label] += (time.perf_counter() - t0) * 1e3 / n
+            return out
+        return run
+
+    step_ms = 0.0
+    with contextlib.ExitStack() as swaps:
+        for label, mod, name in stages + inner:
+            swaps.enter_context(_Swap(mod, name, timed(label, getattr(mod, name))))
+        for _ in range(n):
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, _ = P["rollout"].rollout_step(
+                params, state, cfg.train.initial_temperature, cfg, True, gen=gen, device=dev
+            )
+            _sync(dev)
+            step_ms += (time.perf_counter() - t0) * 1e3 / n
+    ms["other"] = step_ms - sum(ms[label] for label, _, _ in stages)
+    ms["step"] = step_ms
+    log(f"{tag} per-stage ms/step over {n} steps (synchronised around each; "
+        f"{', '.join(label for label, _, _ in inner)} inside a stage): "
+        f"{json.dumps(ms)} {card}")
+    return state
+
+
+def phase_time_breakdown(P, params, state, cfg, dev, gen, step_ms, card):
+    """Per-stage host times, and the device's busy share from a
+    torch.profiler window."""
+    R, VE = P["rollout"], P["vec_env"]
+    stages = [
+        ("noise", R, "draw_noise"), ("movegen", R, "legal_moves_split"),
+        ("obs_value", P["value_net"], "forward"), ("select", R, "_select_action_split"),
+        ("env", VE, "step_chosen"), ("reset", VE, "reset_where"),
+    ]
+    inner = [("fused_value", R, "fused_value")]
+    state = stage_times(P, params, state, cfg, dev, gen, 8, stages, inner, "[7 time]", card)
     profile_steps(P, params, state, cfg, dev, gen, 4, step_ms, card, "[7 time]")
 
 
@@ -506,9 +525,8 @@ def _device_ms_per_round(fns, dev, kernel_name, rounds=10):
     from torch.profiler: the kernel alone, whatever the host's launch rate
     (a loop timed with CUDA events measures the host where each launch is
     shorter than its Python wrapper). The first round is the profiler's
-    warm-up and is not recorded; if the trace still drops a record, the
-    recorded launches' mean is scaled to one round, and fewer than 90% of
-    the launches recorded fails the run."""
+    warm-up and is not recorded; a trace that lacks any launch of the
+    recorded rounds fails the run."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for f in fns:
@@ -531,11 +549,9 @@ def _device_ms_per_round(fns, dev, kernel_name, rounds=10):
     evs = [e for e in traced[0] if kernel_name in e.key and _dev_t(e) > 0]
     n = sum(e.count for e in evs)
     want = rounds * len(fns)
-    if n < 0.9 * want or n > want:
-        raise AssertionError(f"profiler saw {n} {kernel_name} launches, not {want}")
     if n != want:
-        log(f"[profiler] recorded {n} of {want} {kernel_name} launches; mean scaled to a round")
-    return sum(_dev_t(e) for e in evs) / n * len(fns) / 1e3
+        raise AssertionError(f"profiler saw {n} {kernel_name} launches, not {want}")
+    return sum(_dev_t(e) for e in evs) / rounds / 1e3
 
 
 def phase_kernel_timing(P, params, real_inputs, dev, card, tag="[8 kernel time]", iters=30):
@@ -590,12 +606,13 @@ def _step_sums(per, device_ms):
 # ---------------------------------------------------------------------------
 
 
-def twoply_config(P, kernel=True):
-    """Config.production_twoply() with td_mode "side0" and the fused
-    non-doubles tail kernel on (or off, for the kernel-vs-no-kernel check)."""
+def twoply_config(P):
+    """Config.production_twoply() with td_mode "side0", and
+    ``nd_tail_kernel`` set as the JAX package would need it to take its
+    kernel (the port takes its kernel whatever the flag says)."""
     cfg = P["Config"].production_twoply()
     return cfg.replace(
-        movegen=dataclasses.replace(cfg.movegen, nd_tail_kernel=kernel),
+        movegen=dataclasses.replace(cfg.movegen, nd_tail_kernel=True),
         train=dataclasses.replace(cfg.train, td_mode="side0"),
     )
 
@@ -727,42 +744,22 @@ def decisions_2ply(P, params, state, noise, cfg):
     return action, moves
 
 
-def sampled_gap_2ply(P, params, state, moves, noise, cfg, row, a, b):
-    """The gap between the sampled logits (logit + Gumbel) of entries a and
-    b of one row, as select_action_2ply scores them: the 2-ply rerank where
-    the row has >= k moves, the 1-ply softmax otherwise."""
-    X = P["X"]
-    tw = cfg.twoply
-    temp = cfg.train.initial_temperature
-    v = X.oriented_values(params, moves.boards, state.player[..., None], cfg)
-    vm = torch.where(moves.valid, v, X._NEG)
-    if int(moves.count[row]) < tw.top_k_candidates:
-        lg = torch.where(moves.valid[row], vm[row] / temp, X._NEG) + noise.gumbel_1ply[row]
-        return abs(float(lg[a] - lg[b]))
-    topv, topi = X.topk_small(vm, tw.top_k_candidates)
-    cand = P["movegen"].board_take(moves.boards, topi)
-    w_o = X.weighted_opponent_response(params, cand, 1 - state.player, cfg)
-    lg = (tw.alpha * topv[row] - tw.beta * w_o[row]) / temp + noise.gumbel_2ply[row]
-    pos = {int(i): j for j, i in enumerate(topi[row])}
-    return abs(float(lg[pos[a]] - lg[pos[b]]))
-
-
 def phase_twoply_kernel_vs_no_kernel(P, params, state, cfg, dev, gen, card):
     """One state and one noise through the 2-ply step with the nd_tail kernel
-    and with the plain tail: B2 is exact, so every decision, every state
-    leaf and every transition leaf must be identical."""
+    and with its plain version swapped in: B2 is exact, so every decision,
+    every state leaf and every transition leaf must be identical."""
     R, nd = P["rollout"], P["nd"]
     b = state.player.shape[0]
     noise = R.draw_noise(b, cfg, gen, dev)
-    cfg_plain = twoply_config(P, kernel=False)
+    temp = cfg.train.initial_temperature
     a_k, _ = decisions_2ply(P, params, state, noise, cfg)
+    res_k = R.rollout_step(params, state, temp, cfg, True, noise=noise, device=dev)
     n0 = nd.KERNEL.launches
-    a_p, _ = decisions_2ply(P, params, state, noise, cfg_plain)
+    with _Swap(nd, "nd_tail_fused", nd.nd_tail_plain):
+        a_p, _ = decisions_2ply(P, params, state, noise, cfg)
+        res_p = R.rollout_step(params, state, temp, cfg, True, noise=noise, device=dev)
     if nd.KERNEL.launches != n0:
         raise AssertionError("the no-kernel step launched the nd_tail kernel")
-    temp = cfg.train.initial_temperature
-    res_k = R.rollout_step(params, state, temp, cfg, True, noise=noise, device=dev)
-    res_p = R.rollout_step(params, state, temp, cfg_plain, True, noise=noise, device=dev)
     (sk, tk), (sp, tp) = res_k, res_p
     lk = {**leaves(sk, "state."), **leaves(tk, "t.")}
     lp = {**leaves(sp, "state."), **leaves(tp, "t.")}
@@ -775,7 +772,7 @@ def phase_twoply_kernel_vs_no_kernel(P, params, state, cfg, dev, gen, card):
 
 
 def phase_twoply_card_vs_cpu(P, params, cfg, dev, gen, card):
-    R, mg2, VE = P["rollout"], P["movegen2"], P["vec_env"]
+    R, VE = P["rollout"], P["vec_env"]
     state = VE.reset(B_TWOPLY_SMALL, gen, device=dev)
     state = twoply_steps(P, params, state, cfg, dev, gen, 4)
     noise = R.draw_noise(B_TWOPLY_SMALL, cfg, gen, dev)
@@ -792,11 +789,15 @@ def phase_twoply_card_vs_cpu(P, params, cfg, dev, gen, card):
         raise AssertionError("2-ply legal_moves boards differ card vs CPU")
     live = m_c.count > 0
     agree = (a_g.cpu() == a_c) | ~live
-    gaps = [
-        sampled_gap_2ply(P, params_c, state_c, m_c, noise_c, cfg, int(r), int(a_g[r]), int(a_c[r]))
-        for r in torch.nonzero(~agree)[:, 0]
-    ]
     temp = cfg.train.initial_temperature
+    gaps = []
+    if not agree.all():  # in the CPU path's own scores
+        s = P["X"].sampled_logits_2ply(
+            params_c, state_c, m_c, noise_c.gumbel_2ply, noise_c.gumbel_1ply,
+            torch.tensor(temp), cfg,
+        )
+        gaps = [P["X"].sampled_gap(s, int(r), int(a_g[r]), int(a_c[r]))
+                for r in torch.nonzero(~agree)[:, 0]]
     res_g = R.rollout_step(params, state, temp, cfg, True, noise=noise, device=dev)
     res_c = R.rollout_step(params_c, state_c, temp, cfg, True, noise=noise_c, device=cpu)
     compare_steps(P, res_g, res_c, agree, "2-ply card vs CPU step")
@@ -804,47 +805,6 @@ def phase_twoply_card_vs_cpu(P, params, cfg, dev, gen, card):
         f"{int(agree.sum())}/{B_TWOPLY_SMALL} agree; near-tie gaps of the others {gaps} {card}")
     if any(g > 2 * KERNEL_TOL / temp for g in gaps):
         raise AssertionError(f"2-ply card and CPU decisions disagree beyond a near-tie: {gaps}")
-
-
-def phase_twoply_stages(P, params, state, cfg, dev, gen, card):
-    """Per-stage times of the 2-ply step, each synchronised: merged legal
-    moves, the observation and candidate values with the top-k select, the
-    scorer (E[opponent response] of the k candidates), and the env step."""
-    R, X, VE = P["rollout"], P["X"], P["vec_env"]
-    b = state.player.shape[0]
-    k = cfg.twoply.top_k_candidates
-    stages = dict(movegen=0.0, values_topk=0.0, scorer=0.0, select_action_2ply=0.0, env=0.0)
-    n = 3
-    for _ in range(n):
-        noise = R.draw_noise(b, cfg, gen, dev)
-        _sync(dev)
-        marks = [time.perf_counter()]
-        moves = P["movegen2"].legal_moves(state.board, state.player, state.dice, cfg.movegen)
-        _sync(dev); marks.append(time.perf_counter())
-        P["value_net"].forward(params, P["encode_board"](state.board, state.player), cfg.model)
-        v = X.oriented_values(params, moves.boards, state.player[..., None], cfg)
-        _, topi = X.topk_small(torch.where(moves.valid, v, X._NEG), k)
-        cand = P["movegen"].board_take(moves.boards, topi)
-        _sync(dev); marks.append(time.perf_counter())
-        X.weighted_opponent_response(params, cand, 1 - state.player, cfg)
-        _sync(dev); marks.append(time.perf_counter())
-        temp = torch.tensor(cfg.train.initial_temperature, device=dev)
-        action, _ = X.select_action_2ply(
-            params, state, moves, noise.gumbel_2ply, noise.gumbel_1ply, temp, cfg
-        )
-        _sync(dev); marks.append(time.perf_counter())
-        res = VE.step(state, moves, action, noise.next_dice, cfg.env)
-        done = res.done | (~res.state.game_over & (res.state.step_count >= cfg.env.max_timesteps))
-        state = VE.reset_where(done, res.state, noise.reset_opener, noise.reset_first)
-        _sync(dev); marks.append(time.perf_counter())
-        for key, (t0, t1) in zip(stages, zip(marks, marks[1:])):
-            stages[key] += (t1 - t0) * 1e3 / n
-    # select_action_2ply runs the values, the top-k and the scorer again,
-    # plus the sampling: movegen + select_action_2ply + env is one step
-    log(f"[13 time 2-ply] per-stage ms/step (synchronised; select_action_2ply "
-        f"= values_topk + scorer + sampling): "
-        f"{json.dumps({key: round(v, 3) for key, v in stages.items()})} {card}")
-    return state
 
 
 def nd_tail_bound(valid, K):
@@ -944,7 +904,16 @@ def main() -> int:
     state2, stats2 = phase_twoply_main(P, params, state2, cfg2, dev, gen, card)
     phase_twoply_kernel_vs_no_kernel(P, params, state2, cfg2, dev, gen, card)
     phase_twoply_card_vs_cpu(P, params, cfg2, dev, gen, card)
-    state2 = phase_twoply_stages(P, params, state2, cfg2, dev, gen, card)
+    R, X, VE = P["rollout"], P["X"], P["vec_env"]
+    stages2 = [
+        ("noise", R, "draw_noise"), ("movegen", R, "legal_moves"),
+        ("select_action_2ply", R, "select_action_2ply"), ("env", VE, "step"),
+        ("reset", VE, "reset_where"),
+    ]
+    inner2 = [("scorer", X, "weighted_opponent_response"), ("nd_tail", P["nd"], "nd_tail_fused"),
+              ("fused_value", X, "fused_value")]
+    state2 = stage_times(P, params, state2, cfg2, dev, gen, 3, stages2, inner2,
+                         "[13 time 2-ply]", card)
     profile_steps(P, params, state2, cfg2, dev, gen, 2, stats2["ms_per_step"], card,
                   "[13 time 2-ply]")
     nd_step, fv2_step = phase_twoply_kernel_timing(P, params, nd_seen, fv_seen, dev, card)

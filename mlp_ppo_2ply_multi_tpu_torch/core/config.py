@@ -28,10 +28,12 @@ class ModelConfig:
     # Compute dtype for the value-net forward pass. float32 by default for
     # checkpoint-parity; bfloat16 for peak MXU throughput.
     dtype: str = "float32"
-    # Use the fused Pallas board->value kernel (ops/fused_value.py) for the
-    # actor's candidate evaluation: features are built in VMEM instead of a
-    # [B, A, 198] HBM tensor. bfloat16-class numerics (see module docstring);
-    # the learner and f32 parity paths are unaffected.
+    # Use the fused board->value kernel (ops/fused_value.py) for the actor's
+    # candidate evaluation: no [B, A, 198] feature tensor. bfloat16-class
+    # numerics (see module docstring); the learner and f32 parity paths are
+    # unaffected. The port's 1-ply split-planes actor requires it; its 2-ply
+    # scorer requires it on a card (off, the scorer runs encode + forward,
+    # on the CPU only: the f32 parity path).
     fused_actor_kernel: bool = False
     # Two-tier actor candidate evaluation (PERF.md round 2): > 0 compacts
     # each game's valid candidates (order-preserving) to this many slots for
@@ -146,13 +148,11 @@ class MoveGenConfig:
     # ~1.8ms/step at B=4096) with an int compare. False = Gram path
     # (movegen2._dup_earlier_mask), kept for A/B and as a fallback.
     nd_sig_dedup: bool = True
-    # Run the non-doubles tail (select/take/apply/signature/dedup/filters,
-    # movegen2._nd_tail) as ONE fused Pallas kernel with all intermediates
-    # in VMEM (experimental/nd_tail.py) instead of the ~40-fusion XLA chain. Requires
-    # nd_sig_dedup; applies to the single-pass (non-tier) tail on flat
-    # batches — the 2-ply scorer's reply enumeration. Bit-identical keep
-    # masks / counts; afterstates identical at kept slots
-    # (tests/test_nd_tail_kernel.py).
+    # In the JAX package: run the single-pass non-doubles tail as one fused
+    # Pallas kernel. Kept so that configs read the same; the port ignores
+    # it: its single-pass tail always goes through
+    # experimental/nd_tail.nd_tail_fused (the CUDA kernel on a card, the
+    # bit-identical plain version on the CPU).
     nd_tail_kernel: bool = False
     # Two-tier doubles expansion inside legal_moves' compacted sub-batch:
     # when non-empty, (t2, t3, t4) narrow level widths run for EVERY doubles

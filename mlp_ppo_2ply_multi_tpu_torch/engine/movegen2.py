@@ -10,8 +10,9 @@ docstring for the algorithms and their reference citations):
   dropped by canonical delta signature (first occurrence kept), then the
   max-submove filter and the Q7 cap apply. The tail runs two-tier (width
   ``nd_tier`` for every game, full width ``nd_dedup_k`` on a sub-batch of the
-  wide games), as one fused kernel (``experimental/nd_tail.py``, the 2-ply
-  reply path), or as one plain full-width pass.
+  wide games), or else as one full-width pass through the fused tail
+  (``experimental/nd_tail.py``: the CUDA kernel on a card; the 2-ply reply
+  path).
 * Doubles: canonical multiset enumeration (submove ranks nondecreasing), so
   no duplicates arise; run on a compacted sub-batch of the doubles games.
 
@@ -370,9 +371,11 @@ def enumerate_nondoubles(
     (generate_all_moves.py:25-53). ``passes`` supplies precomputed
     (high-first, low-first) passes from ``die_tables`` (the 2-ply scorer).
 
-    The tail runs two-tier when ``0 < nd_tier < nd_dedup_k``; else, on a flat
-    batch with ``nd_tail_kernel``, as ``experimental.nd_tail.nd_tail_fused``
-    (the CUDA kernel on a card); else as one plain full-width pass."""
+    The tail runs two-tier when ``0 < nd_tier < nd_dedup_k`` on a flat batch;
+    else as one full-width pass through ``experimental.nd_tail.nd_tail_fused``
+    (the CUDA kernel on a card, its plain version on the CPU), whatever
+    ``nd_tail_kernel`` says: the flag only chose the Pallas kernel on the
+    TPU."""
     if not cfg.nd_sig_dedup:
         raise NotImplementedError("the Gram dedup path is not ported")
     pa, pb, valid, d_hi, d_lo = _nd_candidates(board, player, dice, passes)
@@ -383,24 +386,24 @@ def enumerate_nondoubles(
         after = board_where(pl.in_sub[:, None], _take0(pl.after_w, pl.slot), narrow.boards)
         keep = torch.where(pl.in_sub[:, None], pl.keep_w[pl.slot], narrow.valid)
         overflow = pl.overflow
-    elif cfg.nd_tail_kernel and valid.dim() == 2:
+    else:
         from mlp_ppo_2ply_multi_tpu_torch.experimental.nd_tail import nd_tail_fused
 
         bs = board.batch_shape
+        n = valid[..., 0].numel()
+        row = lambda x: torch.broadcast_to(
+            torch.as_tensor(x, device=valid.device), bs
+        ).reshape(n)
+        cells = board.data.shape[-1]
         after_d, keep, n_pre, pct, _ = nd_tail_fused(
-            valid, pa.b1.data, pb.b1.data, board.data,
-            torch.broadcast_to(torch.as_tensor(player), bs),
-            torch.broadcast_to(d_hi, bs), torch.broadcast_to(d_lo, bs),
-            K, cfg.a_max,
+            valid.reshape(n, valid.shape[-1]), pa.b1.data.reshape(n, N_SLOTS, cells),
+            pb.b1.data.reshape(n, N_SLOTS, cells), board.data.reshape(n, cells),
+            row(player), row(d_hi), row(d_lo), K, cfg.a_max,
         )
-        after = Board(data=after_d)
-        overflow = (n_pre > K) | (pct > cfg.a_max)
-    else:
-        after, keep, pct, _ = _nd_tail(
-            board, pa.b1, pb.b1, valid, player, d_hi, d_lo, K, cfg.a_max
-        )
+        after = Board(data=after_d.reshape(*bs, K, cells))
+        keep = keep.reshape(*bs, K)
         # candidates lost to the dedup-slot cap or the Q7 presented cap
-        overflow = (_popcount(valid) > K) | (pct > cfg.a_max)
+        overflow = ((n_pre > K) | (pct > cfg.a_max)).reshape(bs)
     return MoveSet(boards=after, valid=keep, count=_popcount(keep), overflow=overflow)
 
 

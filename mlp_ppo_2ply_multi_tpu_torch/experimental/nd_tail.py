@@ -3,11 +3,12 @@ delta signature, first-occurrence dedup, max-submove filter and Q7 cap in
 one kernel.
 
 Port of ``mlp_ppo_2ply_multi_tpu/experimental/nd_tail.py`` (the Pallas
-kernel built by ``_make_kernel``). It runs where
-``MoveGenConfig.nd_tail_kernel`` is set and the non-doubles tail is a single
-full-width pass on a flat batch: the 2-ply scorer's reply enumeration (15
-calls a 2-ply step). On the TPU the kernel lost to XLA (16-row tiles forced
-by scoped VMEM); that says nothing about this card.
+kernel built by ``_make_kernel``). It runs wherever the non-doubles tail is
+a single full-width pass: the 2-ply scorer's reply enumeration (15 calls a
+2-ply step). There JAX chose it with ``MoveGenConfig.nd_tail_kernel``, off
+by default because on the TPU the kernel lost to XLA (16-row tiles forced by
+scoped VMEM); that says nothing about this card, and the port takes the
+kernel whatever the flag says.
 
 Two implementations of one function, bit-identical:
 
@@ -35,6 +36,8 @@ N_SLOTS = 27
 N_CAND = 2 * (N_SLOTS + 1) * N_SLOTS  # 1512
 N_CELLS = 52
 
+MAX_K = 576  # kMaxK in csrc/nd_tail.cu: one thread per candidate, one block a row
+
 _SRC = Path(__file__).resolve().parent / "csrc" / "nd_tail.cu"
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -47,6 +50,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.nd_tail_launch.restype = ctypes.c_int
     lib.nd_tail_max_k.argtypes = []
     lib.nd_tail_max_k.restype = ctypes.c_int
+    if lib.nd_tail_max_k() != MAX_K:
+        raise RuntimeError(f"nd_tail.cu takes K <= {lib.nd_tail_max_k()}, MAX_K is {MAX_K}")
 
 
 KERNEL = CudaKernel(_SRC, _bind)
@@ -104,9 +109,8 @@ def kernel_operands(valid, b1a, b1b, b0, player, d_hi, d_lo, K: int):
     _check(valid, b1a, b1b, b0, player, d_hi, d_lo)
     if valid.device.type != "cuda":
         raise ValueError(f"the nd_tail kernel runs on cuda, inputs are on {valid.device}")
-    max_k = KERNEL.load().nd_tail_max_k()
-    if not 1 <= K <= max_k:
-        raise ValueError(f"the nd_tail kernel takes 1 <= K <= {max_k}, got {K}")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"the nd_tail kernel takes 1 <= K <= {MAX_K}, got {K}")
     i32 = lambda x: _aligned(x.to(torch.int32))
     return (
         _aligned(valid).view(torch.uint8), _aligned(b1a), _aligned(b1b),

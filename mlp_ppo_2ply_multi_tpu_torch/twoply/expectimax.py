@@ -21,7 +21,8 @@ Sampling takes injected Gumbel noise: ``argmax(logits + gumbel)`` is what
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import math
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -76,9 +77,15 @@ def topk_small(v: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _values(params, boards: Board, flag, cfg: Config) -> torch.Tensor:
     """Candidate values through ``fused_value`` when the actor has the fused
-    kernel, else encode + forward."""
+    kernel, else encode + forward (the f32 parity path, CPU only: on a card
+    the values go through the kernel)."""
     if cfg.model.fused_actor_kernel:
         return fused_value(boards.data, flag, params)
+    if boards.data.device.type != "cpu":
+        raise NotImplementedError(
+            "on a card the 2-ply scorer values boards through the fused_value "
+            "kernel: set model.fused_actor_kernel"
+        )
     return value_net.forward(params, encode_board(boards, flag), cfg.model)
 
 
@@ -206,6 +213,44 @@ def _wor_unrolled(
     return total, flags
 
 
+class SampledLogits(NamedTuple):
+    """The sampled logits (logits + Gumbel noise) that ``select_action_2ply``
+    takes the argmax of."""
+
+    rerank: torch.Tensor  # f32 [B, k] 2-ply scores / T + noise
+    cand: torch.Tensor  # int64 [B, k] entry index of each reranked candidate
+    one_ply: torch.Tensor  # f32 [B, W] 1-ply values / T + noise
+    use_2ply: torch.Tensor  # bool [B] the row has >= k legal moves
+
+
+def sampled_logits_2ply(
+    params: Dict[str, torch.Tensor],
+    state,
+    moves: MoveSet,
+    gumbel_2ply: torch.Tensor,
+    gumbel_1ply: torch.Tensor,
+    temperature: torch.Tensor,
+    cfg: Config,
+) -> SampledLogits:
+    """softmax(score/T) logits over the reranked top-k candidates and
+    softmax(V/T) logits over all entries, each plus its Gumbel noise
+    (``gumbel_2ply`` [B, k], ``gumbel_1ply`` [B, W])."""
+    k = cfg.twoply.top_k_candidates
+    v_moves = oriented_values(params, moves.boards, state.player[..., None], cfg)
+    v_masked = torch.where(moves.valid, v_moves, _NEG)
+
+    topv, topi = topk_small(v_masked, k)  # [B, k]
+    top_valid = torch.gather(moves.valid, -1, topi)
+    cand = board_take(moves.boards, topi)
+    w_o = weighted_opponent_response(params, cand, 1 - state.player, cfg)
+    scores = cfg.twoply.alpha * topv - cfg.twoply.beta * w_o
+    logits2 = torch.where(top_valid, scores / temperature, _NEG)
+    logits1 = torch.where(moves.valid, v_masked / temperature, _NEG)
+    return SampledLogits(
+        logits2 + gumbel_2ply, topi, logits1 + gumbel_1ply, moves.count >= k
+    )
+
+
 def select_action_2ply(
     params: Dict[str, torch.Tensor],
     state,
@@ -217,24 +262,26 @@ def select_action_2ply(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """2-ply move selection: softmax(score/T) over the reranked top-k
     candidates where >= k legal moves exist, 1-ply softmax(V/T) otherwise,
-    each sampled as argmax(logits + Gumbel noise) with ``gumbel_2ply``
-    [B, k] and ``gumbel_1ply`` [B, W]. Returns (action [B] int64 into the
-    move set's entry axis, v_obs [B])."""
-    k = cfg.twoply.top_k_candidates
+    each sampled as argmax(``sampled_logits_2ply``). Returns (action [B]
+    int64 into the move set's entry axis, v_obs [B])."""
     v_obs = value_net.forward(params, encode_board(state.board, state.player), cfg.model)
-    v_moves = oriented_values(params, moves.boards, state.player[..., None], cfg)
-    v_masked = torch.where(moves.valid, v_moves, _NEG)
+    s = sampled_logits_2ply(
+        params, state, moves, gumbel_2ply, gumbel_1ply, temperature, cfg
+    )
+    pick = torch.argmax(s.rerank, -1)
+    action_2ply = torch.gather(s.cand, -1, pick[..., None])[..., 0]
+    action_1ply = torch.argmax(s.one_ply, -1)
+    return torch.where(s.use_2ply, action_2ply, action_1ply), v_obs
 
-    topv, topi = topk_small(v_masked, k)  # [B, k]
-    top_valid = torch.gather(moves.valid, -1, topi)
-    cand = board_take(moves.boards, topi)
-    w_o = weighted_opponent_response(params, cand, 1 - state.player, cfg)
-    scores = cfg.twoply.alpha * topv - cfg.twoply.beta * w_o
-    logits2 = torch.where(top_valid, scores / temperature, _NEG)
-    pick = torch.argmax(logits2 + gumbel_2ply, -1)
-    action_2ply = torch.gather(topi, -1, pick[..., None])[..., 0]
 
-    logits1 = torch.where(moves.valid, v_masked / temperature, _NEG)
-    action_1ply = torch.argmax(logits1 + gumbel_1ply, -1)
-    use_2ply = moves.count >= k
-    return torch.where(use_2ply, action_2ply, action_1ply), v_obs
+def sampled_gap(s: SampledLogits, row: int, a: int, b: int) -> float:
+    """|difference| of the sampled logits of entries ``a`` and ``b`` of one
+    row, in the draw that decided the row (the rerank or the 1-ply softmax);
+    inf where the rerank did not hold both. A small gap between two
+    decisions taken from one state is a near-tie."""
+    if not bool(s.use_2ply[row]):
+        return abs(float(s.one_ply[row, a] - s.one_ply[row, b]))
+    pos = {int(i): j for j, i in enumerate(s.cand[row])}
+    if a not in pos or b not in pos:
+        return math.inf
+    return abs(float(s.rerank[row, pos[a]] - s.rerank[row, pos[b]]))

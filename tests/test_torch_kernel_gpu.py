@@ -121,6 +121,41 @@ def test_nd_tail_kernel_matches_plain(rows, K, a_max):
 
 
 @pytest.mark.gpu
+def test_single_pass_tail_launches_the_kernel_whatever_the_flag():
+    """On a card the single-pass non-doubles tail is the kernel, with
+    ``nd_tail_kernel`` off as on."""
+    from mlp_ppo_2ply_multi_tpu_torch.core.config import MoveGenConfig
+    from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
+    from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
+    from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
+
+    dev = _card()
+    _, _, _, b0, player, d_hi, d_lo = _random_positions(64, 5, dev)
+    dice = torch.stack([d_hi, d_lo], -1)
+    for flag in (False, True):
+        before = nd_tail.KERNEL.launches
+        movegen2.enumerate_nondoubles(
+            Board(b0), player, dice, MoveGenConfig(nd_tier=0, nd_tail_kernel=flag)
+        )
+        assert nd_tail.KERNEL.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_twoply_scorer_raises_without_the_value_kernel():
+    from mlp_ppo_2ply_multi_tpu_torch.core.config import Config, TwoPlyConfig
+    from mlp_ppo_2ply_multi_tpu_torch.engine.board import initial_board
+    from mlp_ppo_2ply_multi_tpu_torch.twoply import expectimax
+
+    dev = _card()
+    cfg = Config(twoply=TwoPlyConfig(enabled=True))
+    params = value_net.load_checkpoint(CKPT, device=dev)
+    with pytest.raises(NotImplementedError):
+        expectimax.weighted_opponent_response(
+            params, initial_board((2, 4), dev), torch.zeros(2, dtype=torch.int64, device=dev), cfg
+        )
+
+
+@pytest.mark.gpu
 def test_nd_tail_kernel_raises_on_what_it_cannot_take():
     from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
 

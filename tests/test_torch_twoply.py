@@ -224,23 +224,17 @@ def teacher_forced(td_mode, fused, seed, n, steps, **twoply):
 def near_tie_rows(step, rows):
     """For rows where the decisions differ: the gap between the two chosen
     entries' sampled logits (logit + Gumbel) in the port's own scores."""
-    tc, ts, noise = step["tc"], step["ts"], step["noise"]
-    moves = step["tmoves"]
-    v = tX.oriented_values(step["tparams"], moves.boards, ts.player[..., None], tc)
-    gaps = []
-    for r in rows:
-        ja, ta = int(step["jaction"][r]), int(step["taction"][r])
-        if int(moves.count[r]) < tc.twoply.top_k_candidates:
-            lg = v[r] / TEMP + noise.gumbel_1ply[r]
-            gaps.append(abs(float(lg[ja] - lg[ta])))
-        else:  # 2-ply rerank: compare the two candidates' sampled scores
-            vm = torch.where(moves.valid[r], v[r], tX._NEG)
-            topv, topi = tX.topk_small(vm[None], tc.twoply.top_k_candidates)
-            s = (tc.twoply.alpha * topv[0] - tc.twoply.beta * torch.from_numpy(step["tw_o"][r]))
-            lg = s / TEMP + noise.gumbel_2ply[r]
-            pos = {int(i): j for j, i in enumerate(topi[0])}
-            gaps.append(abs(float(lg[pos[ja]] - lg[pos[ta]])) if ja in pos and ta in pos else np.inf)
-    return gaps
+    if not len(rows):
+        return []
+    ts, noise = step["ts"], step["noise"]
+    s = tX.sampled_logits_2ply(
+        step["tparams"], ts, step["tmoves"], noise.gumbel_2ply, noise.gumbel_1ply,
+        torch.tensor(TEMP), step["tc"],
+    )
+    return [
+        tX.sampled_gap(s, int(r), int(step["jaction"][r]), int(step["taction"][r]))
+        for r in rows
+    ]
 
 
 @pytest.fixture(scope="module")
@@ -279,6 +273,27 @@ def test_select_action_2ply_f32_decisions(f32_run):
     # the 2-ply rerank decided most rows (>= 4 legal moves)
     counts = np.concatenate([s["tmoves"].count.numpy() for s in f32_run])
     assert (counts >= 4).mean() > 0.5
+
+
+def test_sampled_logits_give_the_step_decisions(f32_run):
+    """The argmax of ``sampled_logits_2ply`` is ``select_action_2ply``'s
+    action, and ``sampled_gap`` reads that draw."""
+    s = f32_run[0]
+    ts, noise = s["ts"], s["noise"]
+    sl = tX.sampled_logits_2ply(
+        s["tparams"], ts, s["tmoves"], noise.gumbel_2ply, noise.gumbel_1ply,
+        torch.tensor(TEMP), s["tc"],
+    )
+    pick = torch.gather(sl.cand, -1, sl.rerank.argmax(-1, keepdim=True))[:, 0]
+    action = torch.where(sl.use_2ply, pick, sl.one_ply.argmax(-1))
+    np.testing.assert_array_equal(action.numpy(), s["taction"])
+    r = int(torch.nonzero(sl.use_2ply)[0, 0])
+    a, b = int(sl.cand[r, 0]), int(sl.cand[r, 1])
+    assert tX.sampled_gap(sl, r, a, a) == 0.0
+    gap = abs(float(sl.rerank[r, 0] - sl.rerank[r, 1]))
+    assert tX.sampled_gap(sl, r, a, b) == gap > 0
+    outside = next(i for i in range(sl.one_ply.shape[-1]) if i not in sl.cand[r].tolist())
+    assert tX.sampled_gap(sl, r, a, outside) == np.inf
 
 
 def test_rollout_step_2ply_teacher_forced_f32(f32_run):
