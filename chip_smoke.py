@@ -520,47 +520,42 @@ def kernel_bound(boards, hidden=128):
     )
 
 
-def _device_ms_per_round(fns, dev, kernel_name, rounds=10):
-    """Device time of the named kernel per round of calling every fn once,
-    from torch.profiler: the kernel alone, whatever the host's launch rate
-    (a loop timed with CUDA events measures the host where each launch is
-    shorter than its Python wrapper). The first round is the profiler's
-    warm-up and is not recorded; a trace that lacks any launch of the
-    recorded rounds fails the run."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
+def _queued_ms_per_round(fns, dev, rounds=10):
+    """Device time per round of calling every fn once: CUDA events around
+    ``rounds`` rounds that the host queued while a spin kernel held the
+    card, so the events time the kernels back to back, whatever the host's
+    launch rate (a loop timed with events alone measures the host where
+    each launch is shorter than its Python wrapper). The spin grows until
+    the card is still spinning when the host has queued the last launch;
+    the run fails if it never is."""
     for f in fns:
         f()
     _sync(dev)
-    traced = []
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-        schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-        on_trace_ready=lambda p: traced.append(p.key_averages()),
-    ) as prof:
-        for work in (1, rounds):  # warm-up, then the recorded rounds
-            for _ in range(work):
-                for f in fns:
-                    f()
-            _sync(dev)
-            prof.step()
-    if len(traced) != 1:
-        raise AssertionError(f"profiler returned {len(traced)} traces, not 1")
-    evs = [e for e in traced[0] if kernel_name in e.key and _dev_t(e) > 0]
-    n = sum(e.count for e in evs)
-    want = rounds * len(fns)
-    if n != want:
-        raise AssertionError(f"profiler saw {n} {kernel_name} launches, not {want}")
-    return sum(_dev_t(e) for e in evs) / rounds / 1e3
+    cycles = 10**8  # ~50 ms at the H100's 1.98 GHz boost clock
+    for _ in range(4):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        e0.record()
+        for _ in range(rounds):
+            for f in fns:
+                f()
+        e1.record()
+        queued_ahead = not e0.query()
+        _sync(dev)
+        if queued_ahead:
+            return e0.elapsed_time(e1) / rounds
+        cycles *= 8
+    raise AssertionError("the host could not queue the timed launches ahead of the card")
 
 
 def phase_kernel_timing(P, params, real_inputs, dev, card, tag="[8 kernel time]", iters=30):
     """Per main-path input, with CUDA events around a loop of calls: the
     kernel alone (launches on operands laid out once), the whole wrapper as
     the main path calls it (params recombined on every call), and the plain
-    version; then the kernel's device time per step from the profiler. The
-    inputs stay in L2 between launches, as the main path's freshly gathered
-    tensors do."""
+    version; then the kernel's device time per step, its launches queued
+    ahead of the card. The inputs stay in L2 between launches, as the main
+    path's freshly gathered tensors do."""
     fv = P["fv"]
     per = []
     kernel_calls = []
@@ -580,14 +575,15 @@ def phase_kernel_timing(P, params, real_inputs, dev, card, tag="[8 kernel time]"
                    runs_ms=[p1, k1, w1, w2, k2, p2], **bd)
         per.append(row)
         log(f"{tag} {json.dumps(row)} {card}")
-    step = _step_sums(per, _device_ms_per_round(kernel_calls, dev, "fused_value_kernel"))
+    step = _step_sums(per, _queued_ms_per_round(kernel_calls, dev))
     log(f"{tag} one step: {json.dumps(step)} {card}")
     return step
 
 
 def _step_sums(per, device_ms):
-    """One step's launches summed: the kernel's device time (profiler), and
-    the event-timed kernel, wrapper and plain loops, and the bound."""
+    """One step's launches summed: the kernel's device time (launches
+    queued ahead), the event-timed kernel, wrapper and plain loops, and the
+    bound."""
     t_bytes = sum(r["bytes_ms"] for r in per)
     t_ops = sum(r["ops_ms"] for r in per)
     return dict(
@@ -848,7 +844,7 @@ def phase_twoply_kernel_timing(P, params, nd_seen, fv_seen, dev, card):
         per.append(dict(events_ms=(k1 + k2) / 2, wrapper_ms=(w1 + w2) / 2,
                         plain_ms=(p1 + p2) / 2, runs_ms=[p1, k1, w1, w2, k2, p2],
                         **nd_tail_bound(args[0], K)))
-    nd_step = _step_sums(per, _device_ms_per_round(kernel_calls, dev, "nd_tail_kernel"))
+    nd_step = _step_sums(per, _queued_ms_per_round(kernel_calls, dev))
     log(f"[14 kernel time 2-ply] nd_tail per launch: "
         f"{json.dumps({k: per[0][k] for k in ('rows', 'K', 'bytes', 'ops', 'bytes_ms', 'ops_ms', 'bound_ms')})}; "
         f"event-timed loop ms per call {[round(r['events_ms'], 4) for r in per]} {card}")
@@ -928,7 +924,7 @@ def main() -> int:
             "launches": stats["fused_value_launches"] + stats2["fused_value_launches"],
             "max_abs_err": max(max_err, fv2_err),
             # one 1-ply production step's two launches (tier 1 + tier 2), summed;
-            # ms is the kernels' device time from the profiler
+            # ms is their device time with the launches queued ahead of the card
             "ms": fv1_step["ms"],
             "plain_ms": fv1_step["plain_ms"],
             "bound_ms": fv1_step["bound_ms"],
