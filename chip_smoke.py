@@ -20,7 +20,8 @@ any failure exits non-zero:
 
 1. device: torch's view of the card and nvidia-smi's name and power limit;
 2. build: one nvcc per kernel source, started together (seconds,
-   registers, spills, shared memory);
+   registers, spills, shared memory), and the tensor-core instructions
+   (HMMA/HGMMA) in fused_value_kernel's SASS, which must not be 0;
 3. kernel vs plain (1-ply): fused_value against ``fused_value_plain`` at
    the main path's two shapes, on random in-domain boards and on the real
    candidate boards of a production step;
@@ -46,8 +47,11 @@ any failure exits non-zero:
     equal but near-ties, identical integer state on agreeing rows;
 13. where the 2-ply time goes: per-stage host times and a torch.profiler
     window;
-14. kernel timing and bound at the 2-ply shapes, then the kernels line and
-    the result line.
+14. kernel timing and bound at the 2-ply shapes (with fused_value's design
+    floors: the dense layer-1 product and the sigmoid's MUFU work), the
+    yardstick ``dense_product_ms`` (torch.matmul of a pre-built bf16 r by G,
+    which the port never calls), then the kernels line and the result
+    line.
 
 It imports torch, numpy and the port only. Without CUDA, or without the
 port beside it, it exits non-zero and prints no result.
@@ -83,6 +87,8 @@ BF16_FLOP_PER_S = 989e12
 # CUDA-core operations (integer and f32, outside the tensor cores): the data
 # sheet's 67 TFLOP/s f32 rate, which bounds the nd_tail kernel's int work
 CORE_OPS_PER_S = 67e12
+# MUFU (ex2, rcp): 16 a clock per SM, 132 SMs at the 1,980 MHz boost clock
+MUFU_OPS_PER_S = 16 * 132 * 1.98e9
 KERNEL_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/ops/csrc/fused_value.cu"
 KERNEL_REPLACES = "mlp_ppo_2ply_multi_tpu/ops/fused_value.py:93"
 ND_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/experimental/csrc/nd_tail.cu"
@@ -219,9 +225,29 @@ def phase_device():
     return name, count, smi
 
 
+def sass_mma_count(so, kernel):
+    """Tensor-core instructions (HMMA/HGMMA) in ``kernel``'s SASS in the
+    library ``so``, by cuobjdump; None where the toolkit has no cuobjdump."""
+    from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import nvcc
+
+    tool = Path(nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and ("HMMA" in line or "HGMMA" in line):
+            count += 1
+    return count
+
+
 def phase_build(P):
     """One nvcc per kernel source, all started together."""
-    kernels = (P["fv"].KERNEL, P["nd"].KERNEL)
+    fv, nd = P["fv"], P["nd"]
+    kernels = (fv.KERNEL, nd.KERNEL)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.load(), kernels))
@@ -233,6 +259,14 @@ def phase_build(P):
         for line in str(info.get("ptxas", "")).splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling")):
                 log(f"[2 build] ptxas: {line.strip()}")
+    log(f"[2 build] dynamic shared memory: fused_value {fv.KERNEL.lib.fused_value_smem()} B "
+        f"a CTA; nd_tail {nd.KERNEL.lib.nd_tail_smem(96)} B a CTA at K = 96, "
+        f"{nd.KERNEL.lib.nd_tail_smem(nd.MAX_K)} B at K = {nd.MAX_K}")
+    mma = sass_mma_count(fv.KERNEL.build_info["path"], "fused_value_kernel")
+    log(f"[2 build] tensor-core instructions (HMMA/HGMMA) in fused_value_kernel's SASS: "
+        f"{'not measured (no cuobjdump)' if mma is None else mma}")
+    if mma == 0:
+        raise AssertionError("fused_value_kernel has no tensor-core instruction")
 
 
 def capture_candidates(P, params, state, cfg, dev, gen):
@@ -503,7 +537,9 @@ def kernel_bound(boards, hidden=128):
     """Least time for fused_value on these rows: the bytes it must move
     (boards + per-row flag in, f32 out, params) over HBM bandwidth, and the
     bf16 products this data needs (the nonzero lanes of r times G, plus the
-    head) over the bf16 peak. Also the dense count of the 208 x h layer."""
+    head) over the bf16 peak. Also the floors of the kernel's design: the
+    dense 208 x h layer-1 product over the bf16 peak, and the sigmoid's two
+    MUFU operations (ex2, rcp) per hidden unit over the MUFU rate."""
     c = boards.reshape(-1, 52).to(torch.int32)
     rows = c.shape[0]
     nnz = int(c[:, :48].clamp(0, 4).sum()) + int((c[:, 48:] > 0).sum())
@@ -516,6 +552,7 @@ def kernel_bound(boards, hidden=128):
         rows=rows, nnz_lanes_per_row=nnz / rows, bytes=nbytes, ops=ops,
         dense_ops=dense_ops, bytes_ms=t_bytes, ops_ms=t_ops,
         dense_ops_ms=dense_ops / BF16_FLOP_PER_S * 1e3,
+        sigmoid_ms=rows * hidden * 2 / MUFU_OPS_PER_S * 1e3,
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
     )
 
@@ -552,7 +589,7 @@ def _queued_ms_per_round(fns, dev, rounds=10):
 def phase_kernel_timing(P, params, real_inputs, dev, card, tag="[8 kernel time]", iters=30):
     """Per main-path input, with CUDA events around a loop of calls: the
     kernel alone (launches on operands laid out once), the whole wrapper as
-    the main path calls it (params recombined on every call), and the plain
+    the main path calls it (packed params from the cache), and the plain
     version; then the kernel's device time per step, its launches queued
     ahead of the card. The inputs stay in L2 between launches, as the main
     path's freshly gathered tensors do."""
@@ -586,8 +623,10 @@ def _step_sums(per, device_ms):
     bound."""
     t_bytes = sum(r["bytes_ms"] for r in per)
     t_ops = sum(r["ops_ms"] for r in per)
+    floors = {k: sum(r[k] for r in per) for k in ("dense_ops_ms", "sigmoid_ms") if k in per[0]}
     return dict(
         calls_per_step=len(per),
+        **floors,
         ms=device_ms,
         events_ms=sum(r["events_ms"] for r in per),
         wrapper_ms=sum(r["wrapper_ms"] for r in per),
@@ -850,7 +889,22 @@ def phase_twoply_kernel_timing(P, params, nd_seen, fv_seen, dev, card):
         f"event-timed loop ms per call {[round(r['events_ms'], 4) for r in per]} {card}")
     log(f"[14 kernel time 2-ply] nd_tail one step: {json.dumps(nd_step)} {card}")
     fv_step = phase_kernel_timing(P, params, fv_seen, dev, card, "[14 kernel time 2-ply] fused_value", 10)
+    fv_step["dense_product_ms"] = dense_product_ms(P, params, fv_seen[1][0], dev, card)
     return nd_step, fv_step
+
+
+def dense_product_ms(P, params, boards, dev, card):
+    """A yardstick, not the same function: torch.matmul of a pre-built bf16
+    r [rows, 208] by G [208, 128] at one reply call's rows, by CUDA events.
+    The port never calls it."""
+    g = P["fv"].recombine_params(params)[0]
+    c = boards.reshape(-1, 52).float()
+    r = torch.clamp(c[:, :, None] - torch.arange(4.0, device=dev), min=0)
+    r = r.reshape(-1, 208).to(torch.bfloat16)
+    ms = _time_ms(lambda: torch.matmul(r, g), dev, 20)
+    log(f"[14 kernel time 2-ply] dense_product_ms (torch.matmul bf16 "
+        f"{list(r.shape)} x {list(g.shape)}): {ms:.4f} {card}")
+    return ms
 
 
 def main() -> int:

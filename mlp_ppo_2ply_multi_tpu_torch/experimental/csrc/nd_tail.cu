@@ -26,19 +26,24 @@
 // tables of 27 x 52 bytes, the 52-byte root and three ints (4,384 B), and
 // writes K x 52 + 2K + 8 bytes (5,192 B at K = 96). Its arithmetic is a few
 // hundred integer operations per candidate plus K(K-1)/2 signature compares
-// per row, ~1 us of the CUDA cores at [4096, 96] against ~12 us for the bytes
-// at 3.35 TB/s: bytes bound it.
+// per row, ~1 us of the CUDA cores at [4096, 96] against 11.7 us for the
+// bytes at 3.35 TB/s: bytes bound it.
 //
-// What the design does about it. One thread block per row, one thread per
-// candidate (blockDim = K rounded up to a warp). The row's inputs are staged
-// into shared memory with word loads (2,860 B of boards); nothing but the
-// outputs goes back to device memory. The select is one block prefix sum:
-// each thread counts the set bytes of its chunk of the 1512, and the
-// exclusive scan places its set cells into the sorted index list. Each
-// candidate thread decodes its cell, builds its afterstate in shared memory
-// and writes its signature there; the dedup is a broadcast read of the
-// earlier signatures; has_pair is __syncthreads_or and the Q7 rank a second
-// block scan. The afterstates leave shared memory in coalesced 4-byte words.
+// What the design does about it. One warp per row, no block barrier: lane l
+// takes candidates l, l + 32, ... (3 groups at K = 96, 18 at K = 576). The
+// select reads the row's candidate bytes as 8-byte words (six loads a lane,
+// all issued before use), turns each into an 8-bit mask and ranks the set
+// cells with a warp-shuffle scan; the first K indices go to shared memory.
+// Each candidate reads its 52-byte child straight from the pass-A or pass-B
+// table (L1/L2; only the ~30 selected children of a row are read, not both
+// 1,404-byte tables), applies its second submove in its own 52-byte slot of
+// a per-warp staging buffer and writes its signature to shared memory; the
+// staged group of 32 afterstates then leaves in coalesced 4-byte words (a
+// lane's own 52-byte rows would be 13 strided stores touching ~8x the L2
+// sectors). Dedup compares a signature with the earlier ones (broadcast
+// reads), has_pair is __any_sync and the Q7 rank a __ballot_sync prefix.
+// Shared memory is 6 B x K + 1,664 B a row (2.2 KB at K = 96), so a CTA of 4
+// warps (rows) needs no opt-in and 4,096 rows run in one wave.
 // The Pallas kernel's one-hot matmuls and triangular cumsums, which served
 // the TPU's matrix unit, have no counterpart here.
 
@@ -56,7 +61,16 @@ constexpr int kPoints = 24;
 constexpr int kBar = 24;
 constexpr int kOff = 25;
 constexpr int kSent = 31;                   // signature lane: absent
-constexpr int kMaxK = 576;
+constexpr int kMaxK = 576;                  // 18 groups of 32 candidates
+constexpr int kWarps = 4;                   // rows a CTA
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStage = 32 * kCells;         // one group's afterstates
+constexpr int kRounds = (kCand / 8 + 31) / 32;  // 8-byte loads a lane: 6
+
+// Shared bytes of one warp (row): signatures, staging, selected cells.
+__host__ __device__ constexpr int warp_bytes(int K) {
+  return (4 * K + kStage + 2 * K + 15) / 16 * 16;
+}
 
 struct Submove {
   int start, end;
@@ -124,36 +138,12 @@ __device__ __forceinline__ int submove_sig(const Submove& a, const Submove& b, b
   return sig;
 }
 
-// Inclusive prefix sum of one int per thread over the block (blockDim a
-// multiple of 32); *total gets the block's sum. Every thread must call it.
-__device__ int block_scan(int v, int* s_warp, int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += y;
-  }
-  if (lane == 31) s_warp[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nw ? s_warp[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    s_warp[lane] = w;
-  }
-  __syncthreads();
-  const int out = v + (warp > 0 ? s_warp[warp - 1] : 0);
-  *total = s_warp[nw - 1];
-  __syncthreads();  // s_warp is free again
-  return out;
+// Set-byte mask of a 4-byte word (bit i for byte i != 0).
+__device__ __forceinline__ unsigned nz4(unsigned x) {
+  return ((__vcmpne4(x, 0u) & 0x01010101u) * 0x01020408u) >> 24;
 }
 
-__global__ void __launch_bounds__(kMaxK)
+__global__ void __launch_bounds__(kThreads)
 nd_tail_kernel(const uint8_t* __restrict__ valid,
                const int8_t* __restrict__ b1a,
                const int8_t* __restrict__ b1b,
@@ -166,122 +156,138 @@ nd_tail_kernel(const uint8_t* __restrict__ valid,
                int32_t* __restrict__ n_pre,
                int32_t* __restrict__ pct,
                uint8_t* __restrict__ kpair,
-               int K, int a_max) {
-  __shared__ __align__(16) uint8_t s_valid[kCand];
-  __shared__ __align__(16) int8_t s_child[2 * kChild];  // pass A, then pass B
-  __shared__ __align__(16) int8_t s_root[kCells];
-  __shared__ int s_warp[32];
-  // dynamic: signatures int[K], afterstates int8[K][52], selected cells int16[K]
+               long long n, int K, int a_max) {
+  // per warp: signatures int[K], staging int8[32][52], selected cells int16[K]
   extern __shared__ __align__(16) unsigned char s_dyn[];
-  int* s_sig = reinterpret_cast<int*>(s_dyn);
-  int8_t* s_after = reinterpret_cast<int8_t*>(s_dyn + 4 * K);
-  int16_t* s_sel = reinterpret_cast<int16_t*>(s_dyn + (4 + kCells) * K);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + warp;
+  if (row >= n) return;  // whole warps only; no block barrier follows
+  unsigned char* mine = s_dyn + (size_t)warp * warp_bytes(K);
+  int* s_sig = reinterpret_cast<int*>(mine);
+  int8_t* s_stage = reinterpret_cast<int8_t*>(mine + 4 * K);
+  int16_t* s_sel = reinterpret_cast<int16_t*>(mine + 4 * K + kStage);
+  const unsigned full = 0xffffffffu;
+  const unsigned lt = (1u << lane) - 1u;
 
-  const long long row = blockIdx.x;
-  const int t = threadIdx.x;
-  const int nt = blockDim.x;
-
-  // 1. stage the row (the wrapper guarantees 16-byte aligned bases; rows of
-  //    1512, 1404 and 52 bytes keep 8-, 4- and 4-byte alignment)
-  {
-    const uint2* src = reinterpret_cast<const uint2*>(valid + row * kCand);
-    uint2* dst = reinterpret_cast<uint2*>(s_valid);
-    for (int i = t; i < kCand / 8; i += nt) dst[i] = src[i];
-    const int* ca = reinterpret_cast<const int*>(b1a + row * kChild);
-    const int* cb = reinterpret_cast<const int*>(b1b + row * kChild);
-    int* dc = reinterpret_cast<int*>(s_child);
-    for (int i = t; i < kChild / 4; i += nt) {
-      dc[i] = ca[i];
-      dc[kChild / 4 + i] = cb[i];
-    }
-    if (t < kCells / 4)
-      reinterpret_cast<int*>(s_root)[t] = reinterpret_cast<const int*>(b0 + row * kCells)[t];
+  // 1. select: rank the set cells with a warp scan, keep the first K
+  const uint2* vrow = reinterpret_cast<const uint2*>(valid + row * kCand);
+  uint2 v[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int wi = r * 32 + lane;
+    v[r] = wi < kCand / 8 ? vrow[wi] : make_uint2(0u, 0u);
   }
+  int total = 0;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    unsigned bits = nz4(v[r].x) | (nz4(v[r].y) << 4);
+    const int cnt = __popc(bits);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(full, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int rank = total + incl - cnt;
+    const int base = 8 * (r * 32 + lane);
+    while (bits && rank < K) {
+      s_sel[rank++] = static_cast<int16_t>(base + __ffs(bits) - 1);
+      bits &= bits - 1;
+    }
+    total += __shfl_sync(full, incl, 31);
+  }
+  __syncwarp();
+
   const int p = player[row];
   const int dhi = d_hi[row];
   const int dlo = d_lo[row];
-  __syncthreads();
+  const int8_t* root = b0 + row * kCells;
+  const int groups = (K + 31) / 32;
 
-  // 2. select: the k-th set cell for k < K, by one block prefix sum
-  int total;
-  {
-    const int chunk = (kCand + nt - 1) / nt;
-    const int lo = min(t * chunk, kCand);
-    const int hi = min(lo + chunk, kCand);
-    int cnt = 0;
-    for (int i = lo; i < hi; ++i) cnt += s_valid[i] != 0;
-    int rank = block_scan(cnt, s_warp, &total) - cnt;
-    for (int i = lo; i < hi && rank < K; ++i)
-      if (s_valid[i]) s_sel[rank++] = static_cast<int16_t>(i);
-  }
-  __syncthreads();
-
-  // 3. one thread per candidate: decode, afterstate, signature
-  const int k = t;
-  bool ok = false;
-  bool kp = false;
-  if (k < K) {
-    ok = k < total;
-    const int idx = ok ? s_sel[k] : kCand - 1;  // the plain version's clip
-    const int blk = idx / kSlots;
-    const int loc = idx - blk * kSlots;
-    const int cpass = blk >= kSlots + 1 ? 1 : 0;
-    const int bb = blk - cpass * (kSlots + 1);
-    const bool pair = bb < kSlots;
-    const int ci = pair ? bb : loc;
-    const int8_t* first = s_child + cpass * kChild + ci * kCells;
-    int8_t* out = s_after + k * kCells;
+  // 2. candidates k = 32 i + lane: decode, afterstate, signature; each
+  //    group's afterstates leave the staging buffer in coalesced words
+  unsigned okm = 0, kpm = 0;
+  for (int i = 0; i < groups; ++i) {
+    const int k = 32 * i + lane;
+    if (k < K) {
+      const bool ok = k < total;
+      const int idx = ok ? s_sel[k] : kCand - 1;  // the plain version's clip
+      const int blk = idx / kSlots;
+      const int loc = idx - blk * kSlots;
+      const int cpass = blk >= kSlots + 1 ? 1 : 0;
+      const int bb = blk - cpass * (kSlots + 1);
+      const bool pair = bb < kSlots;
+      const int ci = pair ? bb : loc;
+      const int* first = reinterpret_cast<const int*>(
+          (cpass ? b1b : b1a) + row * kChild + ci * kCells);
+      int8_t* out = s_stage + lane * kCells;
 #pragma unroll
-    for (int w = 0; w < kCells / 4; ++w)
-      reinterpret_cast<int*>(out)[w] = reinterpret_cast<const int*>(first)[w];
-    kp = ok && pair;
-    const Submove m1 = slot_params(s_root, p, cpass == 0 ? dhi : dlo, ci);
-    Submove m2 = {0, 0, false};
-    if (kp) {
-      m2 = slot_params(first, p, cpass == 0 ? dlo : dhi, loc);
-      apply(out, p, m2);
+      for (int w = 0; w < kCells / 4; ++w) reinterpret_cast<int*>(out)[w] = first[w];
+      const bool kp = ok && pair;
+      const Submove m1 = slot_params(root, p, cpass == 0 ? dhi : dlo, ci);
+      Submove m2 = {0, 0, false};
+      if (kp) {
+        m2 = slot_params(out, p, cpass == 0 ? dlo : dhi, loc);
+        apply(out, p, m2);
+      }
+      s_sig[k] = submove_sig(m1, m2, kp);
+      okm |= (unsigned)ok << i;
+      kpm |= (unsigned)kp << i;
     }
-    s_sig[k] = submove_sig(m1, m2, kp);
+    __syncwarp();
+    const int words = min(32, K - 32 * i) * (kCells / 4);
+    const int* src = reinterpret_cast<const int*>(s_stage);
+    int* dst = reinterpret_cast<int*>(after + (row * K + 32 * i) * kCells);
+    for (int w = lane; w < words; w += 32) dst[w] = src[w];
+    __syncwarp();
   }
-  __syncthreads();
 
-  // 4. first-occurrence dedup (every j < k < total is present), max-submove
-  //    filter, Q7 rank cap
-  bool kept = false;
-  if (ok) {
-    const int mine = s_sig[k];
-    kept = true;
+  // 3. first-occurrence dedup (every j < k < total is present)
+  unsigned keptm = 0;
+  for (int i = 0; i < groups; ++i) {
+    if (!((okm >> i) & 1u)) continue;
+    const int k = 32 * i + lane;
+    const int sig = s_sig[k];
+    bool kept = true;
     for (int j = 0; j < k; ++j)
-      if (s_sig[j] == mine) {
+      if (s_sig[j] == sig) {
         kept = false;
         break;
       }
+    keptm |= (unsigned)kept << i;
   }
-  const bool has_pair = __syncthreads_or(kept && kp) != 0;
-  kept = kept && (kp || !has_pair);
-  int survivors;
-  const int rank = block_scan(kept ? 1 : 0, s_warp, &survivors);
 
-  if (k < K) {
-    keep[row * K + k] = kept && rank <= a_max;
-    kpair[row * K + k] = kp;
+  // 4. max-submove filter, Q7 rank cap
+  const bool has_pair = __any_sync(full, (keptm & kpm) != 0u);
+  int survivors = 0;
+  for (int i = 0; i < groups; ++i) {
+    const int k = 32 * i + lane;
+    const bool kp = (kpm >> i) & 1u;
+    const bool kept = ((keptm >> i) & 1u) && (kp || !has_pair);
+    const unsigned bal = __ballot_sync(full, kept);
+    const int rank = survivors + __popc(bal & lt) + 1;  // inclusive
+    if (k < K) {
+      keep[row * K + k] = kept && rank <= a_max;
+      kpair[row * K + k] = kp;
+    }
+    survivors += __popc(bal);
   }
-  if (t == 0) {
+  if (lane == 0) {
     n_pre[row] = total;
     pct[row] = survivors;
   }
-  // block_scan ended with a barrier: every afterstate is in shared memory
-  const int* src = reinterpret_cast<const int*>(s_after);
-  int* dst = reinterpret_cast<int*>(after + row * K * kCells);
-  for (int i = t; i < K * (kCells / 4); i += nt) dst[i] = src[i];
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest K the kernel takes (one thread per candidate, one block per row).
+// Largest K the kernel takes (candidate groups fit a 32-bit mask).
 int nd_tail_max_k() { return kMaxK; }
+
+// Dynamic shared memory of one CTA (kWarps rows) at width K, in bytes.
+int nd_tail_smem(int K) { return kWarps * warp_bytes(K); }
 
 // Launch on `stream`. Device pointers, all 16-byte aligned: valid uint8
 // [n, 1512] (0/1), b1a and b1b int8 [n, 27, 52], b0 int8 [n, 52], player,
@@ -295,13 +301,13 @@ int nd_tail_launch(const void* valid, const void* b1a, const void* b1b,
                    void* stream) {
   if (n <= 0) return 0;
   if (K < 1 || K > kMaxK || n > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const int threads = (K + 31) / 32 * 32;
-  const size_t smem = (size_t)K * (4 + kCells + 2);
-  nd_tail_kernel<<<(unsigned)n, threads, smem, (cudaStream_t)stream>>>(
+  const long long blocks = (n + kWarps - 1) / kWarps;
+  const size_t smem = (size_t)kWarps * warp_bytes(K);
+  nd_tail_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)valid, (const int8_t*)b1a, (const int8_t*)b1b,
       (const int8_t*)b0, (const int32_t*)player, (const int32_t*)d_hi,
       (const int32_t*)d_lo, (int8_t*)after, (uint8_t*)keep, (int32_t*)n_pre,
-      (int32_t*)pct, (uint8_t*)kpair, K, a_max);
+      (int32_t*)pct, (uint8_t*)kpair, n, K, a_max);
   return (int)cudaGetLastError();
 }
 

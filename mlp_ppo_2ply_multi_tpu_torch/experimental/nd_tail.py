@@ -30,13 +30,13 @@ import torch
 
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen2 import _nd_tail
-from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import CudaKernel
+from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import CudaKernel, aligned16
 
 N_SLOTS = 27
 N_CAND = 2 * (N_SLOTS + 1) * N_SLOTS  # 1512
 N_CELLS = 52
 
-MAX_K = 576  # kMaxK in csrc/nd_tail.cu: one thread per candidate, one block a row
+MAX_K = 576  # kMaxK in csrc/nd_tail.cu: one warp a row, candidate groups in a 32-bit mask
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "nd_tail.cu"
 
@@ -50,6 +50,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.nd_tail_launch.restype = ctypes.c_int
     lib.nd_tail_max_k.argtypes = []
     lib.nd_tail_max_k.restype = ctypes.c_int
+    lib.nd_tail_smem.argtypes = [ctypes.c_int]
+    lib.nd_tail_smem.restype = ctypes.c_int
     if lib.nd_tail_max_k() != MAX_K:
         raise RuntimeError(f"nd_tail.cu takes K <= {lib.nd_tail_max_k()}, MAX_K is {MAX_K}")
 
@@ -96,12 +98,6 @@ def nd_tail_plain(
     return after.data, keep, valid.sum(-1, dtype=torch.int32), pct, kpair
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned (a fresh copy where it is not)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def kernel_operands(valid, b1a, b1b, b0, player, d_hi, d_lo, K: int):
     """Check what the CUDA kernel takes and lay out its operands: contiguous,
     aligned, the candidate bits as uint8 and the per-row scalars as int32.
@@ -111,10 +107,10 @@ def kernel_operands(valid, b1a, b1b, b0, player, d_hi, d_lo, K: int):
         raise ValueError(f"the nd_tail kernel runs on cuda, inputs are on {valid.device}")
     if not 1 <= K <= MAX_K:
         raise ValueError(f"the nd_tail kernel takes 1 <= K <= {MAX_K}, got {K}")
-    i32 = lambda x: _aligned(x.to(torch.int32))
+    i32 = lambda x: aligned16(x.to(torch.int32))
     return (
-        _aligned(valid).view(torch.uint8), _aligned(b1a), _aligned(b1b),
-        _aligned(b0), i32(player), i32(d_hi), i32(d_lo),
+        aligned16(valid).view(torch.uint8), aligned16(b1a), aligned16(b1b),
+        aligned16(b0), i32(player), i32(d_hi), i32(d_lo),
     )
 
 

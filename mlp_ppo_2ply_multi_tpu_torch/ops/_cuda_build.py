@@ -18,6 +18,8 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
 
+import torch
+
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -62,6 +64,13 @@ def build(src: Path) -> Tuple[Path, Dict[str, object]]:
     log.write_text(ptxas)
     os.replace(tmp, so)
     return so, {"path": str(so), "cached": False, "seconds": secs, "ptxas": ptxas}
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as the kernels' 16-byte loads need (a
+    fresh copy where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 class CudaKernel:

@@ -16,8 +16,11 @@ Two implementations of one function, with the TPU kernel's rounding points
 * ``fused_value_plain`` — plain PyTorch. The CPU path, and on the card the
   kernel's oracle. Its matmuls run in full f32: TF32 must stay off
   (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
-* the CUDA kernel ``csrc/fused_value.cu`` (sm_90a), built with ``nvcc`` at
-  first use (``ops/_cuda_build.py``) and bound with ``ctypes``.
+* the CUDA kernel ``csrc/fused_value.cu`` (sm_90a; layer 1 on the tensor
+  cores by wgmma), built with ``nvcc`` at first use (``ops/_cuda_build.py``)
+  and bound with ``ctypes``. Its parameter operands (G in the layout its
+  shared-memory descriptor reads, ``pack_g``/``g_index_map``, and the
+  bias/head vector) are made once per parameter set (``packed_params``).
 
 ``fused_value`` routes a CPU tensor to the plain version and a CUDA tensor
 to the kernel, and raises on anything else.
@@ -25,15 +28,17 @@ to the kernel, and raises on anything else.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
-from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import CudaKernel
+from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import CudaKernel, aligned16
 
 N_CELLS = 52  # 48 point cells + bar x2 + off x2 (engine/board.py layout)
 N_REP = 4 * N_CELLS  # 208
+HIDDEN = 128  # kHidden in csrc/fused_value.cu
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "fused_value.cu"
 
@@ -96,52 +101,112 @@ def fused_value_plain(
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.fused_value_launch.argtypes = [ctypes.c_void_p] * 8 + [
+    lib.fused_value_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong,
         ctypes.c_void_p,
     ]
     lib.fused_value_launch.restype = ctypes.c_int
     lib.fused_value_hidden.argtypes = []
     lib.fused_value_hidden.restype = ctypes.c_int
+    lib.fused_value_smem.argtypes = []
+    lib.fused_value_smem.restype = ctypes.c_int
+    if lib.fused_value_hidden() != HIDDEN:
+        raise RuntimeError(f"fused_value.cu is built for hidden={lib.fused_value_hidden()}")
 
 
 KERNEL = CudaKernel(_SRC, _bind)
 
 
+def g_index_map(hidden: int = HIDDEN) -> torch.Tensor:
+    """int64 [208 * hidden]: entry i is the flat index into G [208, hidden]
+    of the i-th bf16 of the packed G, in the order the kernel reads it.
+
+    The kernel's wgmma reads G one k step of 16 rows at a time, K-major
+    without swizzle: 8 x 8 "core matrices" (8 hidden units n, 8 k, k
+    contiguous) of 128 contiguous bytes. The packed order is
+    [s, i, j, r, e] for k = 16s + 8j + e and n = 8i + r: core matrices 128 B
+    apart along K (j) and 256 B apart along N (i), each k step 4,096 B."""
+    s = torch.arange(N_REP // 16).view(-1, 1, 1, 1, 1)
+    i = torch.arange(hidden // 8).view(1, -1, 1, 1, 1)
+    j = torch.arange(2).view(1, 1, -1, 1, 1)
+    r = torch.arange(8).view(1, 1, 1, -1, 1)
+    e = torch.arange(8).view(1, 1, 1, 1, -1)
+    k = 16 * s + 8 * j + e
+    n = 8 * i + r
+    return (k * hidden + n).reshape(-1)
+
+
+def pack_g(g: torch.Tensor) -> torch.Tensor:
+    """G [208, h] laid out as the kernel reads it (``g_index_map``): a flat
+    contiguous tensor of G's dtype."""
+    idx = g_index_map(g.shape[1]).to(g.device)
+    return g.reshape(-1)[idx].contiguous()
+
+
+def pack_params(params: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's parameter operands: (packed G bf16 [208 * h], head f32
+    [3h + 1] = b1', b1' + tflip, w2, b2). b1' + tflip is the sum the plain
+    version adds for flag 1, w2 is its bf16 value as f32."""
+    g, b1p, tflip, w2r, b2 = recombine_params(params)
+    head = torch.cat([b1p[0], (b1p + tflip)[0], w2r.float()[0], b2])
+    return pack_g(g), head.contiguous()
+
+
+_PACKED: Dict[str, tuple] = {}  # device -> (weakrefs, versions, operands)
+
+
+def packed_params(params: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pack_params`` once per parameter set: cached per device and keyed
+    by the params tensors themselves and their ``_version``, so an in-place
+    update (a learner's step) repacks and a new parameter dict does too."""
+    ts = [params[k] for k in ("w1", "b1", "w2", "b2")]
+    key = str(ts[0].device)
+    hit = _PACKED.get(key)
+    if hit is not None:
+        refs, versions, ops = hit
+        if all(r() is t for r, t in zip(refs, ts)) and versions == [t._version for t in ts]:
+            return ops
+    ops = pack_params(params)
+    _PACKED[key] = ([weakref.ref(t) for t in ts], [t._version for t in ts], ops)
+    return ops
+
+
 def kernel_operands(boards_data, flag, params) -> Tuple[torch.Tensor, ...]:
     """Check what the CUDA kernel takes and lay out its operands:
-    (boards, flag int8 [...], G, b1', tflip, w2, b2), all on the boards'
-    device and contiguous. Raises on anything the kernel does not take."""
+    (boards, flag int8 [...], packed G, head), all on the boards' device,
+    contiguous and 16-byte aligned. Raises on anything the kernel does not
+    take."""
     _check_boards(boards_data)
     dev = boards_data.device
     if dev.type != "cuda":
         raise ValueError(f"the fused_value kernel runs on cuda, boards are on {dev}")
     if not boards_data.is_contiguous():
         raise ValueError("fused_value kernel needs contiguous boards")
-    lib = KERNEL.load()
-    g, b1p, tflip, w2r, b2 = (t.contiguous() for t in recombine_params(params))
-    if g.shape[1] != lib.fused_value_hidden():
-        raise ValueError(
-            f"fused_value kernel is built for hidden={lib.fused_value_hidden()},"
-            f" params have {g.shape[1]}"
-        )
-    for name, t in (("G", g), ("b1'", b1p), ("tflip", tflip), ("w2", w2r), ("b2", b2)):
+    for name, t in params.items():
         if t.device != dev:
             raise ValueError(f"param {name} is on {t.device}, boards on {dev}")
-    if g.data_ptr() % 16:
-        raise ValueError("G must be 16-byte aligned")
+    if params["w1"].shape[1] != HIDDEN:
+        raise ValueError(
+            f"fused_value kernel is built for hidden={HIDDEN}, params have "
+            f"{params['w1'].shape[1]}"
+        )
+    gpack, head = packed_params(params)
     f = torch.broadcast_to(torch.as_tensor(flag, device=dev), boards_data.shape[:-1])
-    return boards_data, f.to(torch.int8).contiguous(), g, b1p, tflip, w2r, b2
+    return aligned16(boards_data), aligned16(f.to(torch.int8)), gpack, head
 
 
-def launch_kernel(boards, f, g, b1p, tflip, w2r, b2) -> torch.Tensor:
+def launch_kernel(boards, f, gpack, head) -> torch.Tensor:
     """Launch the CUDA kernel on operands from ``kernel_operands`` on the
     current stream; f32 [...] out. Counts the launch."""
     n = boards.numel() // N_CELLS
-    if not (boards.is_cuda and boards.dtype == torch.int8 and boards.is_contiguous()):
-        raise ValueError("launch_kernel takes operands from kernel_operands")
-    if not (f.dtype == torch.int8 and f.numel() == n and f.is_contiguous()
-            and f.device == boards.device):
+    ok = (
+        boards.is_cuda and boards.dtype == torch.int8 and f.dtype == torch.int8
+        and f.numel() == n and gpack.numel() == N_REP * HIDDEN
+        and head.numel() == 3 * HIDDEN + 1
+        and all(t.device == boards.device and t.is_contiguous() and t.data_ptr() % 16 == 0
+                for t in (boards, f, gpack, head))
+    )
+    if not ok:
         raise ValueError("launch_kernel takes operands from kernel_operands")
     lib = KERNEL.load()
     out = torch.empty(boards.shape[:-1], dtype=torch.float32, device=boards.device)
@@ -153,9 +218,8 @@ def launch_kernel(boards, f, g, b1p, tflip, w2r, b2) -> torch.Tensor:
     with torch.cuda.device(boards.device):
         stream = torch.cuda.current_stream(boards.device).cuda_stream
         rc = lib.fused_value_launch(
-            boards.data_ptr(), f.data_ptr(), g.data_ptr(), b1p.data_ptr(),
-            tflip.data_ptr(), w2r.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            n, stream,
+            boards.data_ptr(), f.data_ptr(), gpack.data_ptr(), head.data_ptr(),
+            out.data_ptr(), n, stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_value kernel launch failed: CUDA error {rc}")

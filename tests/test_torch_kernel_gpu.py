@@ -30,9 +30,16 @@ def _card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(4096, 96), (256, 448), (3, 5)])
+@pytest.mark.parametrize(
+    "shape",
+    [(4096, 96), (256, 448), (3, 5)]
+    # row counts around a warp's 16-row m-tile, its 32-row chunk and the
+    # CTA's 256 rows: the ragged tail is masked inside the kernel
+    + [(n, 1) for n in (1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 255, 257, 4097)],
+)
 def test_fused_value_kernel_matches_plain(shape):
-    """Tier-1 and tier-2 main-path shapes, and a ragged tiny one."""
+    """Tier-1 and tier-2 main-path shapes, a ragged tiny one, and row
+    counts around the kernel's tiles."""
     dev = _card()
     params = value_net.load_checkpoint(CKPT, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -46,6 +53,32 @@ def test_fused_value_kernel_matches_plain(shape):
     assert got.shape == want.shape == shape
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.gpu
+def test_fused_value_kernel_every_count_in_every_cell_both_flags():
+    """Rows holding each count 0..15 in every cell (and the int8 extremes,
+    which the kernel clamps as the plain version does), both flags in one
+    call; and params updated in place are repacked before the next call."""
+    dev = _card()
+    params = value_net.load_checkpoint(CKPT, device=dev)
+    counts = torch.arange(16, device=dev)
+    boards = (counts[:, None] + torch.arange(52, device=dev)) % 16  # [16, 52]
+    boards = torch.cat([boards, torch.full((2, 52), 127, device=dev),
+                        torch.full((2, 52), -128, device=dev)]).to(torch.int8)
+    boards = boards.repeat(2, 1)  # 40 rows: each board with flag 0 and 1
+    flag = torch.arange(40, device=dev) // 20
+    got = fv.fused_value(boards, flag, params)
+    want = fv.fused_value_plain(boards, flag, params)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= TOL
+    assert not torch.equal(got[:20], got[20:])  # the flag reached the kernel
+    with torch.no_grad():
+        params["w1"].mul_(0.5)
+    got2 = fv.fused_value(boards, flag, params)
+    want2 = fv.fused_value_plain(boards, flag, params)
+    torch.cuda.synchronize()
+    assert float((got2 - want2).abs().max()) <= TOL and not torch.equal(got2, got)
 
 
 @pytest.mark.gpu
@@ -118,6 +151,47 @@ def test_nd_tail_kernel_matches_plain(rows, K, a_max):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert torch.equal(a, b), name  # `after` too: the kernel clips as the plain version
     assert int(want[2].max()) > min(K, 40)
+
+
+def _with_counts(inputs, K, seed):
+    """The candidate bits cut so that rows cycle through a count of 0, under
+    K, exactly K and over K (bits are added at random where a row has too
+    few; the tail takes any bits)."""
+    import numpy as np
+
+    valid = inputs[0].clone()
+    n = valid.shape[0]
+    rng = np.random.default_rng(seed)
+    extra = torch.as_tensor(rng.random(valid.shape) < 0.5, device=valid.device)
+    kind = torch.arange(n, device=valid.device) % 4
+    valid[kind >= 2] |= extra[kind >= 2]  # 'exactly K' and 'over K' rows: ~756 set
+    rank = torch.cumsum(valid.to(torch.int32), -1)
+    limit = torch.stack([torch.zeros_like(kind), torch.full_like(kind, K // 2),
+                         torch.full_like(kind, K), torch.full_like(kind, 1512)])
+    valid &= rank <= limit.gather(0, kind[None])[0][:, None]
+    return (valid,) + tuple(inputs[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 96, 288, 576])
+def test_nd_tail_kernel_candidate_counts_around_k(K):
+    """Rows with 0, under K, exactly K and over K candidates, at K around
+    the warp's 32-candidate groups and up to MAX_K."""
+    from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
+
+    dev = _card()
+    inputs = _with_counts(_random_positions(203, K, dev), K, K)
+    n_set = inputs[0].sum(-1)
+    assert int((n_set == 0).sum()) > 0 and int((n_set == K).sum()) > 0
+    assert int((n_set > K).sum()) > 0
+    assert K == 1 or int(((n_set > 0) & (n_set < K)).sum()) > 0
+    for a_max in (K, max(1, K // 3)):
+        got = nd_tail.nd_tail_fused(*inputs, K, a_max)
+        want = nd_tail.nd_tail_plain(*inputs, K, a_max)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("after", "keep", "n_pre", "pct", "kpair"), got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype, name
+            assert torch.equal(a, b), (name, a_max)
 
 
 @pytest.mark.gpu
