@@ -842,22 +842,44 @@ def phase_twoply_card_vs_cpu(P, params, cfg, dev, gen, card):
         raise AssertionError(f"2-ply card and CPU decisions disagree beyond a near-tie: {gaps}")
 
 
+def nd_tail_child_rows(valid, K):
+    """Per row, the distinct 52-byte child rows of the pass-A and pass-B
+    tables (27 each) that nd_tail must read: those of the first min(count,
+    K) set cells, and pass B's child 26 where the count is under K (the
+    clip slot). Cell c lies in block c // 27 (pass-A pairs 0..26, singles
+    27, pass-B pairs 28..54, singles 55); a pair takes the child of its
+    block, a single the child of its place in the block."""
+    c = torch.arange(1512, device=valid.device)
+    blk, loc = c // 27, c % 27
+    cpass = (blk >= 28).long()
+    bb = blk - 28 * cpass
+    child = 27 * cpass + torch.where(bb < 27, bb, loc)  # 0..53
+    onehot = torch.nn.functional.one_hot(child, 54).float()
+    sel = valid & (torch.cumsum(valid.int(), -1) <= K)
+    used = (sel.float() @ onehot) > 0
+    used[:, 53] |= valid.sum(-1) < K
+    return used.sum(-1)
+
+
 def nd_tail_bound(valid, K):
     """Least time for nd_tail on these rows: the bytes it must move (1512
-    candidate bytes, two 27 x 52 child tables, the 52-byte root and three
-    int32 in; K x 52 afterstates, keep and kpair bytes and two int32 out)
-    over HBM bandwidth, and the operations this data needs over the
-    CUDA-core rate: every candidate bit is read by the select, and each
-    present candidate (at most K) is decoded, applied and signed (counted
-    as 64 operations) and compared with the earlier ones."""
+    candidate bytes, the child rows its selected candidates use,
+    ``nd_tail_child_rows``, the 52-byte root and three int32 in; K x 52
+    afterstates, keep and kpair bytes and two int32 out) over HBM
+    bandwidth, and the operations this data needs over the CUDA-core rate:
+    every candidate bit is read by the select, and each present candidate
+    (at most K) is decoded, applied and signed (counted as 64 operations)
+    and compared with the earlier ones."""
     n = valid.shape[0]
     m = valid.sum(-1).clamp_max(K).to(torch.int64)
-    nbytes = n * (1512 + 2 * 27 * 52 + 52 + 3 * 4) + n * (K * 52 + 2 * K + 2 * 4)
+    children = int(nd_tail_child_rows(valid, K).sum())
+    nbytes = n * (1512 + 52 + 3 * 4) + 52 * children + n * (K * 52 + 2 * K + 2 * 4)
     ops = n * 1512 + int((64 * m + m * (m - 1) // 2).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / CORE_OPS_PER_S * 1e3
     return dict(
-        rows=n, K=K, present_per_row=float(m.float().mean()), bytes=nbytes, ops=ops,
+        rows=n, K=K, present_per_row=float(m.float().mean()),
+        child_rows_per_row=children / n, bytes=nbytes, ops=ops,
         bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
     )
@@ -885,7 +907,7 @@ def phase_twoply_kernel_timing(P, params, nd_seen, fv_seen, dev, card):
                         **nd_tail_bound(args[0], K)))
     nd_step = _step_sums(per, _queued_ms_per_round(kernel_calls, dev))
     log(f"[14 kernel time 2-ply] nd_tail per launch: "
-        f"{json.dumps({k: per[0][k] for k in ('rows', 'K', 'bytes', 'ops', 'bytes_ms', 'ops_ms', 'bound_ms')})}; "
+        f"{json.dumps({k: per[0][k] for k in ('rows', 'K', 'present_per_row', 'child_rows_per_row', 'bytes', 'ops', 'bytes_ms', 'ops_ms', 'bound_ms')})}; "
         f"event-timed loop ms per call {[round(r['events_ms'], 4) for r in per]} {card}")
     log(f"[14 kernel time 2-ply] nd_tail one step: {json.dumps(nd_step)} {card}")
     fv_step = phase_kernel_timing(P, params, fv_seen, dev, card, "[14 kernel time 2-ply] fused_value", 10)

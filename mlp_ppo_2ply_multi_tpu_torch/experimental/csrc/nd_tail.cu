@@ -22,12 +22,14 @@
 // select gives (pass-B child 26, keep and kpair 0), so even `after` is
 // defined and equal everywhere, though consumers read it only at kept slots.
 //
-// What bounds it. Per row the function reads 1512 candidate bytes, two child
-// tables of 27 x 52 bytes, the 52-byte root and three ints (4,384 B), and
-// writes K x 52 + 2K + 8 bytes (5,192 B at K = 96). Its arithmetic is a few
-// hundred integer operations per candidate plus K(K-1)/2 signature compares
-// per row, ~1 us of the CUDA cores at [4096, 96] against 11.7 us for the
-// bytes at 3.35 TB/s: bytes bound it.
+// What bounds it. Per row the function reads 1512 candidate bytes, the
+// 52-byte child rows its selected candidates use (of the two 27-row tables;
+// many candidates share a first-slot child, so about 8 rows in the 2-ply
+// step's data), the 52-byte root and three ints, and writes K x 52 + 2K + 8
+// bytes (5,192 B at K = 96). Its arithmetic is a few hundred integer
+// operations per candidate plus K(K-1)/2 signature compares per row, ~0.3 us
+// of the CUDA cores at [4096, 96] against ~8.8 us for the bytes at
+// 3.35 TB/s: bytes bound it.
 //
 // What the design does about it. One warp per row, no block barrier: lane l
 // takes candidates l, l + 32, ... (3 groups at K = 96, 18 at K = 576). The
@@ -35,8 +37,8 @@
 // all issued before use), turns each into an 8-bit mask and ranks the set
 // cells with a warp-shuffle scan; the first K indices go to shared memory.
 // Each candidate reads its 52-byte child straight from the pass-A or pass-B
-// table (L1/L2; only the ~30 selected children of a row are read, not both
-// 1,404-byte tables), applies its second submove in its own 52-byte slot of
+// table (L1/L2; only the children the selected candidates use are read, not
+// both 1,404-byte tables), applies its second submove in its own 52-byte slot of
 // a per-warp staging buffer and writes its signature to shared memory; the
 // staged group of 32 afterstates then leaves in coalesced 4-byte words (a
 // lane's own 52-byte rows would be 13 strided stores touching ~8x the L2

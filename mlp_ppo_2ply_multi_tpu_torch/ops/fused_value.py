@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import weakref
+from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -152,22 +153,35 @@ def pack_params(params: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Te
     return pack_g(g), head.contiguous()
 
 
-_PACKED: Dict[str, tuple] = {}  # device -> (weakrefs, versions, operands)
+# parameter set (ids of its tensors) -> (weakrefs, versions, operands), the
+# most recently used last
+_PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
+PACKED_SETS = 4  # parameter sets kept: a learner's params and actor snapshots
 
 
 def packed_params(params: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``pack_params`` once per parameter set: cached per device and keyed
-    by the params tensors themselves and their ``_version``, so an in-place
-    update (a learner's step) repacks and a new parameter dict does too."""
+    """``pack_params`` once per parameter set: cached per set of params
+    tensors (the ``PACKED_SETS`` most recently used) and checked against
+    each tensor's ``_version``.
+
+    Contract: params change only through the tensors themselves. An
+    in-place op on them (an optimizer's step, ``add_``, ``copy_`` under
+    ``no_grad``) bumps ``_version`` and the next call repacks; a new
+    parameter dict is a new set. A write through ``.data`` or ``set_``
+    bumps no version, and the kernel would go on using the old operands."""
     ts = [params[k] for k in ("w1", "b1", "w2", "b2")]
-    key = str(ts[0].device)
+    key = tuple(id(t) for t in ts)
     hit = _PACKED.get(key)
     if hit is not None:
         refs, versions, ops = hit
         if all(r() is t for r, t in zip(refs, ts)) and versions == [t._version for t in ts]:
+            _PACKED.move_to_end(key)
             return ops
     ops = pack_params(params)
     _PACKED[key] = ([weakref.ref(t) for t in ts], [t._version for t in ts], ops)
+    _PACKED.move_to_end(key)
+    while len(_PACKED) > PACKED_SETS:
+        _PACKED.popitem(last=False)
     return ops
 
 

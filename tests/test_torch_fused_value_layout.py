@@ -97,3 +97,44 @@ def test_packed_params_cache_follows_identity_and_version():
     e = fv.packed_params(other)
     assert e[0] is not d[0] and torch.equal(e[0], d[0]) and torch.equal(e[1], d[1])
     assert fv.packed_params(other)[0] is e[0]
+
+
+def test_packed_params_cache_keeps_each_parameter_set():
+    """Parameter sets used in turn (a learner's params and an actor
+    snapshot) are each packed once; past PACKED_SETS sets the least
+    recently used one goes."""
+    sets = [_params(10 + i) for i in range(fv.PACKED_SETS + 1)]
+    first = [fv.packed_params(p) for p in sets[:2]]
+    for _ in range(3):
+        for p, ops in zip(sets[:2], first):
+            got = fv.packed_params(p)
+            assert got[0] is ops[0] and got[1] is ops[1]
+    for p in sets[2:]:
+        fv.packed_params(p)
+    # sets[0] was the least recently used: repacked, equal; sets[-1] still kept
+    assert fv.packed_params(sets[0])[0] is not first[0][0]
+    assert torch.equal(fv.packed_params(sets[0])[0], first[0][0])
+    last = fv.packed_params(sets[-1])
+    assert fv.packed_params(sets[-1])[0] is last[0]
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adam", "adam_foreach"])
+def test_packed_params_repack_after_an_optimizer_step(opt):
+    """The contract a learner keeps: params change through the tensors
+    themselves, so an optimizer's step bumps their versions and the next
+    call packs the new values."""
+    params = _params(20)
+    ts = [params[k].requires_grad_() for k in ("w1", "b1", "w2", "b2")]
+    make = {
+        "sgd": lambda: torch.optim.SGD(ts, lr=0.1),
+        "adam": lambda: torch.optim.Adam(ts, lr=1e-2, foreach=False),
+        "adam_foreach": lambda: torch.optim.Adam(ts, lr=1e-2, foreach=True),
+    }[opt]()
+    before = fv.packed_params(params)
+    for t in ts:
+        t.grad = torch.ones_like(t)
+    make.step()
+    after = fv.packed_params(params)
+    want = fv.pack_params({k: v.detach() for k, v in params.items()})
+    assert after[0] is not before[0] and not torch.equal(after[0], before[0])
+    assert torch.equal(after[0], want[0]) and torch.equal(after[1], want[1])

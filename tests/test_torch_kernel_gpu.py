@@ -33,9 +33,10 @@ def _card():
 @pytest.mark.parametrize(
     "shape",
     [(4096, 96), (256, 448), (3, 5)]
-    # row counts around a warp's 16-row m-tile, its 32-row chunk and the
-    # CTA's 256 rows: the ragged tail is masked inside the kernel
-    + [(n, 1) for n in (1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 255, 257, 4097)],
+    # row counts around a warp's 16 rows, the warpgroup's 64-row tile and
+    # the CTA's 192 rows (three warpgroups): the ragged tail is masked
+    # inside the kernel
+    + [(n, 1) for n in (1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 191, 192, 193, 4097)],
 )
 def test_fused_value_kernel_matches_plain(shape):
     """Tier-1 and tier-2 main-path shapes, a ragged tiny one, and row
