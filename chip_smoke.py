@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two self-play paths on one CUDA card and check
-them.
+"""Drive the PyTorch port's two self-play paths and its training loop on one
+CUDA card and check them.
 
 Run from the repository root, on a machine with one NVIDIA H100:
 
@@ -15,8 +15,10 @@ Path 2 is the 2-ply step under ``Config.production_twoply()`` with
 candidates reranked by the expected opponent reply, whose 15 non-double
 reply enumerations run the fused non-doubles tail CUDA kernel and whose 22
 value batches run the fused board -> value kernel. Both in continuous mode,
-td_mode "side0", with the in-repo checkpoint's weights. Phases, in order;
-any failure exits non-zero:
+td_mode "side0", with the in-repo checkpoint's weights. Paths 3-5 train
+through the CLI's own entry point, ``apps.train.main``, from random weights
+made from a seed: continuous 1-ply, continuous 2-ply and sync with one Adam
+step per episode. Phases, in order; any failure exits non-zero:
 
 1. device: torch's view of the card and nvidia-smi's name and power limit;
 2. build: one nvcc per kernel source, started together (seconds,
@@ -50,8 +52,29 @@ any failure exits non-zero:
 14. kernel timing and bound at the 2-ply shapes (with fused_value's design
     floors: the dense layer-1 product and the sigmoid's MUFU work), the
     yardstick ``dense_product_ms`` (torch.matmul of a pre-built bf16 r by G,
-    which the port never calls), then the kernels line and the result
-    line.
+    which the port never calls);
+15. learner, card vs CPU: one real [64, 4096] trajectory of the production
+    step, one fused TD(0) update on it from the same state on the card and
+    on the CPU (TF32 off): loss, grad norm, params and Adam moments within
+    the CPU tests' tolerances, counters and integer metrics equal; the
+    update's ms (CUDA events and wall) and rows/s;
+16. train, 1-ply: ``apps.train.main`` with --production --mode continuous
+    --td-mode side0 --batch-games 4096 --steps-per-update 64 --updates 4
+    --checkpoint-every 1: 4 metrics lines with finite loss, exactly
+    2 x 256 fused_value launches, the last checkpoint restored bitwise on
+    the card (params, Adam, version 4, generator state), and fused_value
+    against its plain version on the trained params (the packed-params
+    cache followed the in-place updates); ms an update, env-steps/s while
+    training, the learner's share, peak memory;
+17. train, 2-ply: --two-ply --production, B = 1024, 8 steps an update, 2
+    updates: exactly 15 nd_tail and 22 fused_value launches a step, finite
+    loss;
+18. train, sync: --mode sync --production --per-episode-updates, B = 256,
+    1 update (one 300-step rollout, then 256 sequential Adam steps): one
+    metrics line of finite values at episode count 256;
+
+then the kernels line (launches summed over every path's timed run) and the
+result line.
 
 It imports torch, numpy and the port only. Without CUDA, or without the
 port beside it, it exits non-zero and prints no result.
@@ -62,8 +85,10 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -99,6 +124,16 @@ WARMUP_2PLY = 2
 STEPS_2PLY = 8
 ND_LAUNCHES_PER_STEP = 15  # the non-double reply rolls
 FV_LAUNCHES_PER_STEP_2PLY = 22  # candidates + 15 + 6 reply rolls
+LEARN_STEPS = 64  # the learner's trajectory: --steps-per-update 64 at B_PROD
+# the CPU tests' learner tolerances (tests/test_torch_learner.py)
+LEARN_RTOL, PARAM_ATOL, MOMENT_RTOL, MOMENT_FLOOR = 1e-5, 1e-6, 1e-4, 1e-6
+TRAIN_1PLY = ["--production", "--mode", "continuous", "--td-mode", "side0",
+              "--batch-games", str(B_PROD), "--steps-per-update", "64", "--updates", "4",
+              "--checkpoint-every", "1"]
+TRAIN_2PLY = ["--two-ply", "--production", "--mode", "continuous",
+              "--batch-games", str(B_TWOPLY), "--steps-per-update", "8", "--updates", "2"]
+TRAIN_SYNC = ["--mode", "sync", "--production", "--per-episode-updates",
+              "--batch-games", "256", "--updates", "1"]
 
 
 def log(*args) -> None:
@@ -113,10 +148,13 @@ def _port():
     if Path(pkg.__file__).resolve().parent.parent != ROOT:
         raise RuntimeError(f"port imported from {pkg.__file__}, not {ROOT}")
     from mlp_ppo_2ply_multi_tpu_torch.actor import rollout
+    from mlp_ppo_2ply_multi_tpu_torch.apps import train
     from mlp_ppo_2ply_multi_tpu_torch.core.config import Config
     from mlp_ppo_2ply_multi_tpu_torch.engine import board, movegen2
     from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
     from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
+    from mlp_ppo_2ply_multi_tpu_torch.io import checkpoint
+    from mlp_ppo_2ply_multi_tpu_torch.learner import td
     from mlp_ppo_2ply_multi_tpu_torch.model import value_net
     from mlp_ppo_2ply_multi_tpu_torch.ops import fused_value
     from mlp_ppo_2ply_multi_tpu_torch.twoply import expectimax
@@ -124,7 +162,7 @@ def _port():
     return dict(
         rollout=rollout, Config=Config, board=board,
         movegen2=movegen2, vec_env=vec_env, value_net=value_net,
-        fv=fused_value, nd=nd_tail, X=expectimax,
+        fv=fused_value, nd=nd_tail, X=expectimax, td=td, train=train, ckpt=checkpoint,
     )
 
 
@@ -929,6 +967,251 @@ def dense_product_ms(P, params, boards, dev, card):
     return ms
 
 
+# ---------------------------------------------------------------------------
+# the training loop
+# ---------------------------------------------------------------------------
+
+
+def _clone_state(P, state, dev):
+    return P["td"].map_state(lambda t: t.detach().to(dev, copy=True), state)
+
+
+def compare_learner(a, b, what):
+    """Two (state, metrics) results of one update, held to the CPU tests'
+    tolerances (tests/test_torch_learner.py). Returns the largest errors."""
+    (sa, ma), (sb, mb) = a, b
+    err = {}
+    for k in ("loss", "grad_norm", "td_abs", "v_mean"):
+        x, y = float(ma[k]), float(mb[k])
+        err[f"{k}_rel"] = abs(x - y) / max(abs(y), 1e-30)
+        if err[f"{k}_rel"] > LEARN_RTOL:
+            raise AssertionError(f"{what}: {k} {x} vs {y}")
+    for k in ("wins_regular", "wins_gammon", "wins_backgammon", "close_out_count",
+              "prime_count", "width_overflow_count"):
+        if int(ma[k]) != int(mb[k]):
+            raise AssertionError(f"{what}: {k} {int(ma[k])} vs {int(mb[k])}")
+    for k in ("version", "episode_count"):
+        if int(getattr(sa, k)) != int(getattr(sb, k)):
+            raise AssertionError(f"{what}: {k} differs")
+    if int(sa.opt_state.count) != int(sb.opt_state.count):
+        raise AssertionError(f"{what}: Adam count differs")
+    err["params_abs"] = max(float((sa.params[k].cpu() - sb.params[k].cpu()).abs().max())
+                            for k in sb.params)
+    if err["params_abs"] > PARAM_ATOL:
+        raise AssertionError(f"{what}: params differ by {err['params_abs']}")
+    for name in ("mu", "nu"):
+        worst = 0.0
+        for k in sb.params:
+            x = getattr(sa.opt_state, name)[k].cpu()
+            y = getattr(sb.opt_state, name)[k].cpu()
+            lim = MOMENT_RTOL * y.abs() + MOMENT_FLOOR * float(y.abs().max())
+            if not bool(((x - y).abs() <= lim).all()):
+                raise AssertionError(f"{what}: Adam {name} {k} differs")
+            worst = max(worst, float(((x - y).abs() / y.abs().clamp_min(1e-30)).max()))
+        err[f"{name}_rel"] = worst
+    return err
+
+
+def phase_learner(P, dev, gen, card):
+    """One fused update on one real [64, 4096] production trajectory, from
+    the same state on the card and on the CPU."""
+    R, td = P["rollout"], P["td"]
+    cfg = production_config(P)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, per_episode_updates=False))
+    params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
+    state = P["vec_env"].reset(B_PROD, gen, device=dev)
+    _, traj = R.rollout_loop(params, state, cfg.train.initial_temperature, cfg, LEARN_STEPS,
+                             continuous=True, gen=gen, device=dev)
+    # one update first, so the compared one starts from non-zero moments
+    start = td.init_train_state(cfg, gen, dev)._replace(
+        params=params, opt_state=td.init_adam(params))
+    start, _ = td.update(start, traj, cfg, dev)
+    events, walls = [], []
+    for _ in range(3):
+        s = _clone_state(P, start, dev)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        _sync(dev)
+        t0 = time.perf_counter()
+        e0.record()
+        card_out = td.update(s, traj, cfg, dev)
+        e1.record()
+        _sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        events.append(e0.elapsed_time(e1))
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cpu_out = td.update(_clone_state(P, start, cpu), _to_cpu(traj), cfg, cpu)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = compare_learner(card_out, cpu_out, "learner card vs CPU")
+    rows = traj.reward.numel()
+    ms = sorted(events)[1]
+    stats = dict(rows=rows, ms_per_update=ms, wall_ms_per_update=sorted(walls)[1],
+                 runs_ms=events, rows_per_s=rows / (ms / 1e3), cpu_ms=cpu_ms,
+                 loss=float(card_out[1]["loss"]), **err)
+    log(f"[15 learner card vs cpu] {json.dumps(stats)} {card}")
+    return stats
+
+
+def run_train(P, flags, dev, tag, card):
+    """``apps.train.main(flags)`` in-process, in a temp dir, with every
+    kernel count set to 0 just before it and read just after; each
+    update's rollout and td.update are timed (synchronised around each) and
+    the final checkpoint's state and generator are kept."""
+    td, fv, nd, R = P["td"], P["fv"], P["nd"], P["rollout"]
+    learn_ms, roll_ms, saved = [], [], {}
+    real_save = P["ckpt"].save
+
+    def timed(fn, into):
+        def run(*args, **kwargs):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync(dev)
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def keep_save(directory, state, generator, *args, **kwargs):
+        step = real_save(directory, state, generator, *args, **kwargs)
+        saved.update(live=state, state=_clone_state(P, state, dev), dir=directory,
+                     gen=generator.get_state(), step=step)
+        return step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = flags + ["--device", "cuda", "--checkpoint-dir", f"{tmp}/ck",
+                        "--metrics-dir", f"{tmp}/runs", "--log-every", "1"]
+        _sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with _Swap(td, "update", timed(td.update, learn_ms)), \
+                _Swap(R, "rollout_loop", timed(R.rollout_loop, roll_ms)), \
+                _Swap(P["ckpt"], "save", keep_save):
+            fv.KERNEL.launches = 0
+            nd.KERNEL.launches = 0
+            t0 = time.perf_counter()
+            rc = P["train"].main(argv)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+            launches = {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        (run,) = Path(tmp, "runs").iterdir()
+        recs = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+        lines = [r for r in recs if "hist" not in r]
+        restored = P["ckpt"].restore(saved["dir"], dev)
+    if rc != 0:
+        raise AssertionError(f"{tag} train.main returned {rc}")
+    n = len(lines)
+    per_update = (lines[-1]["t"] - lines[0]["t"]) / (n - 1) * 1e3 if n > 1 else None
+    stats = dict(
+        rc=rc, updates=n, wall_s=wall, launches=launches,
+        ms_per_update=per_update,
+        learner_ms=learn_ms, rollout_ms=roll_ms,
+        run_env_steps_per_s=lines[-1]["env_steps_per_sec"],
+        loss=[r["loss"] for r in lines], peak_mem_gib=peak,
+        episode_count=lines[-1]["step"], card=card,
+    )
+    return stats, lines, saved, restored
+
+
+def _states_equal(P, a, b):
+    fa, fb = [], []
+    P["td"].map_state(fa.append, a)
+    P["td"].map_state(fb.append, b)
+    return all(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()) for x, y in zip(fa, fb))
+
+
+def update_breakdown(stats, steps_per_update):
+    """Where a steady update's time goes (the updates after the first): the
+    rollout, the learner, and the rest of the loop (the metrics pull and
+    write, histograms, checkpoints), each in ms, from the synchronised
+    timers and the metrics lines' clock."""
+    ms = stats["ms_per_update"]
+    roll = sum(stats["rollout_ms"][1:]) / (len(stats["rollout_ms"]) - 1)
+    learn = sum(stats["learner_ms"][1:]) / (len(stats["learner_ms"]) - 1)
+    return dict(rollout_ms_mean=roll, rollout_ms_per_step=roll / steps_per_update,
+                learner_ms_mean=learn, other_ms_mean=ms - roll - learn,
+                learner_share=learn / ms)
+
+
+def bare_steps_ms(P, params, cfg, batch, dev, gen, n=8):
+    """ms a step of the same step outside the training loop, in the same
+    process just after it: 2 warm-up steps, then ``n`` timed with a host
+    clock around a synchronised loop."""
+    R = P["rollout"]
+    state = P["vec_env"].reset(batch, gen, device=dev)
+    for _ in range(2):
+        state, _ = R.rollout_step(params, state, 1.0, cfg, True, gen=gen, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, _ = R.rollout_step(params, state, 1.0, cfg, True, gen=gen, device=dev)
+    _sync(dev)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_train_1ply(P, dev, gen, card):
+    stats, lines, saved, (restored, gen_state, step) = run_train(
+        P, TRAIN_1PLY, dev, "[16 train 1-ply]", card)
+    steps = 64 * stats["updates"]
+    if stats["updates"] != 4 or not all(math.isfinite(x) for x in stats["loss"]):
+        raise AssertionError(f"[16 train 1-ply] metrics lines: {stats['updates']}, {stats['loss']}")
+    if stats["launches"]["fused_value"] != 2 * steps:
+        raise AssertionError(f"[16 train 1-ply] fused_value launched {stats['launches']}")
+    bitwise = (_states_equal(P, restored, saved["state"]) and int(restored.version) == 4
+               and torch.equal(gen_state, saved["gen"]) and step == saved["step"])
+    if not bitwise:
+        raise AssertionError("[16 train 1-ply] the last checkpoint does not restore bitwise")
+    # the trained params are the tensors the updates changed in place: the
+    # kernel reads them through the packed-params cache
+    trained = saved["live"].params
+    boards = torch.randint(0, 16, (B_PROD, 96, 52), generator=gen, device=dev).to(torch.int8)
+    flag = torch.randint(0, 2, (B_PROD, 1), generator=gen, device=dev)
+    fv = P["fv"]
+    got = fv.fused_value(boards, flag, trained)
+    want = fv.fused_value_plain(boards, flag, trained)
+    cfg = production_config(P)
+    first = P["td"].init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    moved = float((fv.fused_value_plain(boards, flag, first.params) - want).abs().max())
+    dv = float((got - want).abs().max())
+    stats.update(
+        env_steps_per_s=B_PROD * 64 / (stats["ms_per_update"] / 1e3),
+        **update_breakdown(stats, 64),
+        bare_step_ms=bare_steps_ms(P, trained, cfg, B_PROD, dev, gen),
+        checkpoint_bitwise=bitwise,
+        trained_kernel_max_abs_err=dv, trained_vs_initial_plain_max_abs=moved,
+    )
+    log(f"[16 train 1-ply] {json.dumps(stats)}")
+    if dv > KERNEL_TOL:
+        raise AssertionError(f"[16 train 1-ply] fused_value on trained params off by {dv}")
+    return stats
+
+
+def phase_train_2ply(P, dev, card):
+    stats, lines, _, _ = run_train(P, TRAIN_2PLY, dev, "[17 train 2-ply]", card)
+    steps = 8 * stats["updates"]
+    stats.update(env_steps_per_s=B_TWOPLY * 8 / (stats["ms_per_update"] / 1e3),
+                 **update_breakdown(stats, 8))
+    log(f"[17 train 2-ply] {json.dumps(stats)}")
+    want = {"fused_value": FV_LAUNCHES_PER_STEP_2PLY * steps,
+            "nd_tail": ND_LAUNCHES_PER_STEP * steps}
+    if stats["updates"] != 2 or stats["launches"] != want:
+        raise AssertionError(f"[17 train 2-ply] {stats['updates']} updates, launches "
+                             f"{stats['launches']}, want {want}")
+    if not all(math.isfinite(x) for x in stats["loss"]):
+        raise AssertionError("[17 train 2-ply] loss not finite")
+    return stats
+
+
+def phase_train_sync(P, dev, card):
+    stats, lines, _, _ = run_train(P, TRAIN_SYNC, dev, "[18 train sync]", card)
+    log(f"[18 train sync] {json.dumps(stats)}; metrics line {json.dumps(lines[0])}")
+    finite = all(math.isfinite(v) for v in lines[0].values())
+    if stats["updates"] != 1 or not finite or stats["episode_count"] != 256:
+        raise AssertionError("[18 train sync] bad metrics line")
+    if stats["launches"]["fused_value"] != 2 * 300:
+        raise AssertionError(f"[18 train sync] fused_value launched {stats['launches']}")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
@@ -989,6 +1272,13 @@ def main() -> int:
     profile_steps(P, params, state2, cfg2, dev, gen, 2, stats2["ms_per_step"], card,
                   "[13 time 2-ply]")
     nd_step, fv2_step = phase_twoply_kernel_timing(P, params, nd_seen, fv_seen, dev, card)
+    del nd_seen, fv_seen, state2
+
+    phase_learner(P, dev, gen, card)
+    train1 = phase_train_1ply(P, dev, gen, card)
+    train2 = phase_train_2ply(P, dev, card)
+    train_sync = phase_train_sync(P, dev, card)
+    trains = {"train_1ply": train1, "train_2ply": train2, "train_sync": train_sync}
 
     kernels = [
         {
@@ -996,8 +1286,9 @@ def main() -> int:
             "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": KERNEL_REPLACES,
-            # both paths' timed runs, each counted from 0 just before it
-            "launches": stats["fused_value_launches"] + stats2["fused_value_launches"],
+            # every path's timed run, each counted from 0 just before it
+            "launches": stats["fused_value_launches"] + stats2["fused_value_launches"]
+            + sum(t["launches"]["fused_value"] for t in trains.values()),
             "max_abs_err": max(max_err, fv2_err),
             # one 1-ply production step's two launches (tier 1 + tier 2), summed;
             # ms is their device time with the launches queued ahead of the card
@@ -1009,6 +1300,7 @@ def main() -> int:
             "paths": {
                 "1ply": {"launches": stats["fused_value_launches"], **fv1_step},
                 "2ply": {"launches": stats2["fused_value_launches"], **fv2_step},
+                **{k: {"launches": t["launches"]["fused_value"]} for k, t in trains.items()},
             },
             "ok": True,
         },
@@ -1017,7 +1309,7 @@ def main() -> int:
             "route": "cuda",
             "source": ND_SOURCE,
             "replaces": ND_REPLACES,
-            "launches": stats2["nd_tail_launches"],
+            "launches": stats2["nd_tail_launches"] + train2["launches"]["nd_tail"],
             "max_abs_err": nd_err,
             # one 2-ply step's 15 launches at [4096 rows, K = 96], summed
             "ms": nd_step["ms"],
@@ -1027,6 +1319,8 @@ def main() -> int:
             "library_ms": None,
             "ms_per_launch": nd_step["ms"] / nd_step["calls_per_step"],
             "wrapper_ms": nd_step["wrapper_ms"],
+            "paths": {"2ply": {"launches": stats2["nd_tail_launches"]},
+                      "train_2ply": {"launches": train2["launches"]["nd_tail"]}},
             "ok": True,
         },
     ]

@@ -13,7 +13,11 @@ reference, which stays as it is) module for module:
               and its plain PyTorch version (the 2-ply reply path)
     env/      the batched environment
     twoply/   the 2-ply expectimax rerank
-    actor/    the self-play rollout step: 1-ply split planes, or 2-ply
+    actor/    the self-play rollout step: 1-ply split planes or merged moves,
+              or 2-ply
+    learner/  the TD(0) learner (optax's clip + Adam written out)
+    io/       checkpoints of the whole training state, the metrics writer
+    apps/     the training CLI (python -m mlp_ppo_2ply_multi_tpu_torch.apps.train)
 
 It imports torch and numpy only. Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; without a card they raise instead of running

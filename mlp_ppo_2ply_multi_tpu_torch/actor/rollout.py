@@ -1,7 +1,7 @@
 """Batched self-play actor: movegen -> values -> sampling -> env step, for
 every game in lockstep.
 
-Port of ``mlp_ppo_2ply_multi_tpu/actor/rollout.py``, two of its branches:
+Port of ``mlp_ppo_2ply_multi_tpu/actor/rollout.py``, three of its branches:
 
 * 1-ply split planes (``Config.production()``: ``split_planes=True``,
   ``fused_actor_kernel=True``, ``actor_tier_width=96``):
@@ -17,6 +17,12 @@ Port of ``mlp_ppo_2ply_multi_tpu/actor/rollout.py``, two of its branches:
      maximum on ties);
   5. ``step_chosen``, then ``reset_where`` in continuous mode.
 
+* 1-ply merged moves (``split_planes=False``): the merged ``legal_moves``,
+  then ``select_action``: the unfused f32 encode + forward of the
+  observation and every candidate, or (``fused_actor_kernel``) the
+  candidates through ``fused_value``, two-tier (``_select_action_tiered``)
+  when ``actor_tier_width`` is below the slot width; then ``vec_env.step``.
+
 * 2-ply (``twoply.enabled``, ``Config.production_twoply()``): the merged
   ``legal_moves``, ``twoply.expectimax.select_action_2ply`` (the top-4 1-ply
   candidates reranked by the expected opponent reply), ``vec_env.step``,
@@ -24,8 +30,9 @@ Port of ``mlp_ppo_2ply_multi_tpu/actor/rollout.py``, two of its branches:
 
 Randomness is injected through ``StepNoise`` (1-ply) or ``TwoPlyNoise``
 (2-ply). Without one, a step draws its noise from the caller's
-``torch.Generator`` on the device. The merged 1-ply branch and the tiered
-pipeline raise ``NotImplementedError``.
+``torch.Generator`` on the device. The tiered pipeline
+(``movegen.tiered``) raises ``NotImplementedError``. The step never builds
+an autograd graph.
 """
 from __future__ import annotations
 
@@ -42,7 +49,7 @@ from mlp_ppo_2ply_multi_tpu_torch.core.device import (
 from mlp_ppo_2ply_multi_tpu_torch.encoder.features import encode_board
 from mlp_ppo_2ply_multi_tpu_torch.engine import board as B
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
-from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import board_take, board_where
+from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import MoveSet, board_take, board_where
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen2 import (
     SplitMoves,
     _select_set_bits,
@@ -76,7 +83,8 @@ class Transition(NamedTuple):
 
 
 class StepNoise(NamedTuple):
-    """All randomness of one step, injectable for parity runs."""
+    """All randomness of one 1-ply step, injectable for parity runs. Without
+    a tier (``_noise_shapes``) gumbel_t1 is [B, W] and gumbel_t2 empty."""
 
     gumbel_t1: torch.Tensor  # f32 [B, tier] tier-1 sampling noise
     gumbel_t2: torch.Tensor  # f32 [wn, W] tier-2 sampling noise
@@ -95,12 +103,17 @@ class TwoPlyNoise(NamedTuple):
     reset_first: torch.Tensor  # int [B, 2] non-double first rolls
 
 
-def _split_shapes(batch: int, cfg: Config) -> Tuple[int, int, int]:
-    """(tier, wn, W) of the split-planes actor at this batch: W is the merged
-    slot width of ``legal_moves_split`` (the doubles plane is a_max wide)."""
+def _noise_shapes(batch: int, cfg: Config) -> Tuple[int, int, int]:
+    """(t1, wn, W) of the 1-ply sampling noise, gumbel_t1 [batch, t1] and
+    gumbel_t2 [wn, W]. W is the merged slot width max(a_max, nd_dedup_k) of
+    both ``legal_moves`` and ``legal_moves_split``. The two-tier actor has
+    t1 = tier and wn = max(8, batch // actor_tier_wide_div); without a tier
+    (no fused kernel, a tier of 0 or one not below W) t1 = W and wn = 0."""
     w = max(cfg.movegen.a_max, cfg.movegen.nd_dedup_k)
-    wn = max(8, batch // cfg.model.actor_tier_wide_div)
-    return cfg.model.actor_tier_width, wn, w
+    tier = cfg.model.actor_tier_width
+    if not (cfg.model.fused_actor_kernel and 0 < tier < w):
+        return w, 0, w
+    return tier, max(8, batch // cfg.model.actor_tier_wide_div), w
 
 
 def gumbel(
@@ -116,8 +129,8 @@ def draw_noise(
     batch: int, cfg: Config, gen: Optional[torch.Generator], device: torch.device
 ) -> Union[StepNoise, TwoPlyNoise]:
     """The step's noise: a TwoPlyNoise when 2-ply is enabled, else a
-    StepNoise. W is the merged slot width ``max(a_max, nd_dedup_k)``."""
-    tier, wn, w = _split_shapes(batch, cfg)
+    StepNoise (``_noise_shapes``)."""
+    t1, wn, w = _noise_shapes(batch, cfg)
     if cfg.twoply.enabled:
         return TwoPlyNoise(
             gumbel_2ply=gumbel((batch, cfg.twoply.top_k_candidates), gen, device),
@@ -127,12 +140,99 @@ def draw_noise(
             reset_first=vec_env.roll_nondouble(gen, (batch,), device),
         )
     return StepNoise(
-        gumbel_t1=gumbel((batch, tier), gen, device),
+        gumbel_t1=gumbel((batch, t1), gen, device),
         gumbel_t2=gumbel((wn, w), gen, device),
         next_dice=vec_env.roll_dice(gen, (batch,), device),
         reset_opener=vec_env.roll_nondouble(gen, (batch,), device),
         reset_first=vec_env.roll_nondouble(gen, (batch,), device),
     )
+
+
+def _sample(values, valid, sgn, gumbel_noise, temperature) -> torch.Tensor:
+    """argmax(where(valid, V / T, -1e9) + gumbel), V signed by the mover in
+    td_mode "side0": the draw ``jax.random.categorical`` makes."""
+    if sgn is not None:
+        values = values * sgn[..., None]
+    logits = torch.where(valid, values / temperature, _NEG)
+    return torch.argmax(logits + gumbel_noise, -1)
+
+
+def _wide_rows(count: torch.Tensor, tier: int, cfg: Config):
+    """The tier-2 sub-batch: (wide, sel, sel_ok, in_sub, slot) — the games
+    with more than ``tier`` moves, the first batch/``actor_tier_wide_div``
+    (at least 8) of them gathered by ``sel``, and for each game whether it
+    is in the sub-batch and where."""
+    wide = count > tier
+    wn = max(8, count.shape[0] // cfg.model.actor_tier_wide_div)
+    sel, sel_ok = _select_set_bits(wide, wn)  # [wn]
+    rank = torch.cumsum(wide.to(torch.int32), 0, dtype=torch.int32) - 1
+    in_sub = wide & (rank < wn)
+    return wide, sel, sel_ok, in_sub, rank.clamp(0, wn - 1)
+
+
+def select_action(
+    params,
+    state: vec_env.EnvState,
+    moves: MoveSet,
+    gumbel_t1: torch.Tensor,
+    gumbel_t2: torch.Tensor,
+    temperature: torch.Tensor,
+    cfg: Config,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """softmax(V/T) sampling over the merged MoveSet's afterstate values
+    (the JAX ``select_action``). Returns (action, v_obs, tier_overflow).
+
+    Without ``fused_actor_kernel`` the observation and every candidate go
+    through one encode + forward in ``cfg.model.dtype`` (the f32 parity
+    path); with it the observation takes ``value_net.forward`` and the
+    candidates ``fused_value``, two-tier (``_select_action_tiered``) when
+    ``actor_tier_width`` is below the slot width. td_mode "side0" encodes
+    candidates with the opponent on roll, and side 1 minimizes."""
+    side0 = cfg.train.td_mode == "side0"
+    cand_flag = (1 - state.player) if side0 else state.player
+    sgn = torch.where(state.player == 0, 1.0, -1.0) if side0 else None
+    tier = cfg.model.actor_tier_width
+    if cfg.model.fused_actor_kernel:
+        v_obs = value_net.forward(params, encode_board(state.board, state.player), cfg.model)
+        if 0 < tier < moves.valid.shape[-1]:
+            action, tier_ov = _select_action_tiered(
+                params, moves, cand_flag, sgn, gumbel_t1, gumbel_t2, temperature, cfg
+            )
+            return action, v_obs, tier_ov
+        v_moves = fused_value(moves.boards.data, cand_flag[..., None], params)
+    else:
+        obs = encode_board(state.board, state.player)  # [B, 198]
+        cand = encode_board(moves.boards, cand_flag[..., None])  # [B, A, 198]
+        v = value_net.forward(params, torch.cat([obs[..., None, :], cand], -2), cfg.model)
+        v_obs, v_moves = v[..., 0], v[..., 1:]
+    action = _sample(v_moves, moves.valid, sgn, gumbel_t1, temperature)
+    return action, v_obs, torch.zeros_like(moves.valid[..., 0])
+
+
+def _select_action_tiered(
+    params, moves: MoveSet, cand_flag, sgn, gumbel_t1, gumbel_t2, temperature, cfg: Config
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-tier candidate evaluation over the merged MoveSet: every game's
+    first ``tier`` valid slots, and the games with more moves at full width
+    on a batch/``actor_tier_wide_div`` sub-batch. Returns (action in slot
+    coordinates, overflow flag of wide games beyond the sub-batch, which
+    sample from their truncated tier-1 set)."""
+    tier = cfg.model.actor_tier_width
+    b = moves.valid.shape[0]
+    idx1, ok1 = _select_set_bits(moves.valid, tier)  # [B, tier]
+    t1 = board_take(moves.boards, idx1)
+    v1 = fused_value(t1.data, cand_flag[..., None], params)  # [B, tier]
+    pick1 = _sample(v1, ok1, sgn, gumbel_t1, temperature)  # tier-space index
+    a1 = torch.gather(idx1, -1, pick1[..., None])[..., 0]
+
+    wide, sel, sel_ok, in_sub, slot2 = _wide_rows(moves.count, tier, cfg)
+    t2_flag = torch.broadcast_to(cand_flag, (b,))[sel]
+    v2 = fused_value(moves.boards.data[sel], t2_flag[..., None], params)  # [wn, A]
+    a2 = _sample(
+        v2, moves.valid[sel] & sel_ok[:, None], None if sgn is None else sgn[sel],
+        gumbel_t2, temperature,
+    )
+    return torch.where(in_sub, a2[slot2], a1), wide & ~in_sub
 
 
 def _pad_boards(bd: Board, w: int) -> Board:
@@ -176,16 +276,11 @@ def _select_action_split(
     slot_wd = torch.where(sm.dd_in, wn_w + sm.dd_slot, sm.ndw_slot)
     t1 = board_where((sm.ndw_in | sm.dd_in)[:, None], Board(t1_wd[slot_wd]), t1)
     v1 = fused_value(t1.data, cand_flag[..., None], params)  # [B, tier]
-    if sgn is not None:
-        v1 = v1 * sgn[..., None]
-    logits1 = torch.where(ok1, v1 / temperature, _NEG)
-    pick1 = torch.argmax(logits1 + gumbel_t1, -1)  # tier-space index
+    pick1 = _sample(v1, ok1, sgn, gumbel_t1, temperature)  # tier-space index
     a1 = torch.gather(idx1, -1, pick1[..., None])[..., 0]
 
     # ---- tier 2: wide games at full width on a compacted sub-batch ----
-    wide = sm.count > tier
-    wn = max(8, b // cfg.model.actor_tier_wide_div)
-    sel, sel_ok = _select_set_bits(wide, wn)  # [wn]
+    wide, sel, sel_ok, in_sub, slot2 = _wide_rows(sm.count, tier, cfg)
     t2_boards = _pad_boards(_take0(sm.ndw_boards, sm.ndw_slot[sel]), W)
     if tier < T:
         nd_rows = _pad_boards(_take0(sm.nd_boards, sel), W)
@@ -195,14 +290,7 @@ def _select_action_split(
     t2_flag = torch.broadcast_to(cand_flag, (b,))[sel]
     t2_valid = sm.valid[sel] & sel_ok[:, None]
     v2 = fused_value(t2_boards.data, t2_flag[..., None], params)  # [wn, W]
-    if sgn is not None:
-        v2 = v2 * sgn[sel][..., None]
-    logits2 = torch.where(t2_valid, v2 / temperature, _NEG)
-    a2 = torch.argmax(logits2 + gumbel_t2, -1)  # [wn]
-
-    rank = torch.cumsum(wide.to(torch.int32), 0, dtype=torch.int32) - 1
-    in_sub = wide & (rank < wn)
-    slot2 = rank.clamp(0, wn - 1)
+    a2 = _sample(v2, t2_valid, None if sgn is None else sgn[sel], gumbel_t2, temperature)
     action = torch.where(in_sub, a2[slot2], a1)
 
     # chosen board straight from the tier tensors (no full-width take)
@@ -212,6 +300,7 @@ def _select_action_split(
     return action, chosen, wide & ~in_sub
 
 
+@torch.no_grad()
 def rollout_step(
     params,
     state: vec_env.EnvState,
@@ -223,7 +312,8 @@ def rollout_step(
     device: DeviceLike = None,
 ) -> Tuple[vec_env.EnvState, Transition]:
     """One lockstep self-play step for the whole batch: the 2-ply path when
-    ``cfg.twoply.enabled``, else the 1-ply split-planes path.
+    ``cfg.twoply.enabled``, else the 1-ply split-planes path or (without
+    ``split_planes``) the 1-ply merged-moves path.
 
     ``state`` and ``params`` must lie on ``device`` (default ``cuda``).
     ``noise`` (a TwoPlyNoise for 2-ply, else a StepNoise) injects the step's
@@ -236,15 +326,10 @@ def rollout_step(
             raise NotImplementedError(
                 "the rejected tiered pipeline (experimental/tiered.py) is ported last"
             )
-        if not cfg.movegen.split_planes:
-            raise NotImplementedError(
-                "the 1-ply actor over the merged legal_moves is not ported"
-            )
-        if not (cfg.model.fused_actor_kernel and cfg.model.actor_tier_width):
-            raise NotImplementedError(
-                "split planes need the tiered fused actor; the unfused "
-                "select_action is not ported"
-            )
+        if cfg.movegen.split_planes and not (
+            cfg.model.fused_actor_kernel and cfg.model.actor_tier_width
+        ):
+            raise ValueError("split planes need the tiered fused actor")
     b = state.player.shape[0]
     if noise is None:
         noise = draw_noise(b, cfg, gen, dev)
@@ -261,6 +346,13 @@ def rollout_step(
         )
         res = vec_env.step(state, moves, action, noise.next_dice, cfg.env)
         count, overflow = moves.count, moves.overflow
+    elif not cfg.movegen.split_planes:
+        moves = legal_moves(state.board, state.player, state.dice, cfg.movegen)
+        action, v_obs, tier_ov = select_action(
+            params, state, moves, noise.gumbel_t1, noise.gumbel_t2, temperature, cfg
+        )
+        res = vec_env.step(state, moves, action, noise.next_dice, cfg.env)
+        count, overflow = moves.count, tier_ov | moves.overflow
     else:
         sm = legal_moves_split(state.board, state.player, state.dice, cfg.movegen)
         side0 = cfg.train.td_mode == "side0"

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from mlp_ppo_2ply_multi_tpu_torch.core.config import ModelConfig
+from mlp_ppo_2ply_multi_tpu_torch.core.device import DeviceLike, resolve_device
 
 Params = Dict[str, torch.Tensor]
 
@@ -28,13 +29,14 @@ Params = Dict[str, torch.Tensor]
 def init_params(
     cfg: ModelConfig,
     generator: Optional[torch.Generator] = None,
-    device: Optional[torch.device] = None,
+    device: DeviceLike = None,
 ) -> Params:
     """Xavier-uniform weights and torch-Linear-default uniform biases — the
-    reference's distributions (policy_network.py:50-51). Draws come from
-    ``generator``, so only the distribution matches the JAX package."""
+    reference's distributions (policy_network.py:50-51), on ``device``
+    (default ``cuda``). Draws come from ``generator``, so only the
+    distribution matches the JAX package."""
     in_s, h = cfg.input_size, cfg.hidden_size
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = resolve_device(device)
 
     def uniform(shape, bound):
         u = torch.rand(shape, generator=generator, device=dev, dtype=torch.float32)
@@ -70,10 +72,11 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return (h @ w2 + params["b2"].float()).squeeze(-1)
 
 
-def params_from_jax(params: Dict[str, np.ndarray], device=None) -> Params:
+def params_from_jax(params: Dict[str, np.ndarray], device: DeviceLike = None) -> Params:
     """The JAX pytree (numpy arrays w1 [198,h], b1 [h], w2 [h,1], b2 [1]) as
-    the port's parameters: the same numbers in the same layout."""
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    the port's parameters on ``device`` (default ``cuda``): the same numbers
+    in the same layout."""
+    dev = resolve_device(device)
     return {
         k: torch.tensor(np.asarray(params[k], np.float32), device=dev)
         for k in ("w1", "b1", "w2", "b2")
@@ -86,8 +89,9 @@ def params_from_jax(params: Dict[str, np.ndarray], device=None) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def from_state_dict(sd, device=None) -> Params:
-    dev = torch.device("cpu") if device is None else torch.device(device)
+def from_state_dict(sd, device: DeviceLike = None) -> Params:
+    """A .pth state dict as params on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
     t = lambda k: sd[k].detach().to(device=dev, dtype=torch.float32)
     return {
         "w1": t("fc1.weight").T.contiguous(),  # (h,198) -> (198,h)
@@ -107,7 +111,8 @@ def to_state_dict(params: Params) -> Dict[str, torch.Tensor]:
     }
 
 
-def load_checkpoint(path: str, device=None) -> Params:
+def load_checkpoint(path: str, device: DeviceLike = None) -> Params:
+    """A .pth file as params on ``device`` (default ``cuda``)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return from_state_dict(sd, device)
 

@@ -16,7 +16,7 @@ from mlp_ppo_2ply_multi_tpu_torch.ops import fused_value as fv
 
 
 def _params(seed):
-    return V.init_params(ModelConfig(), torch.Generator().manual_seed(seed))
+    return V.init_params(ModelConfig(), torch.Generator().manual_seed(seed), "cpu")
 
 
 @pytest.mark.parametrize("seed", [0, 1])

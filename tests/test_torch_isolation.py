@@ -41,7 +41,8 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
 
 def test_isolation_covers_every_port_module():
     """The checks above walk the whole package and chip_smoke.py: the 2-ply
-    modules and both kernels' wrappers are among them."""
+    modules, both kernels' wrappers, the learner, checkpoints, metrics and
+    the training CLI are among them."""
     for m in (
         "mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax",
         "mlp_ppo_2ply_multi_tpu_torch.experimental.nd_tail",
@@ -49,6 +50,10 @@ def test_isolation_covers_every_port_module():
         "mlp_ppo_2ply_multi_tpu_torch.ops.fused_value",
         "mlp_ppo_2ply_multi_tpu_torch.engine.movegen2",
         "mlp_ppo_2ply_multi_tpu_torch.actor.rollout",
+        "mlp_ppo_2ply_multi_tpu_torch.learner.td",
+        "mlp_ppo_2ply_multi_tpu_torch.io.checkpoint",
+        "mlp_ppo_2ply_multi_tpu_torch.io.metrics",
+        "mlp_ppo_2ply_multi_tpu_torch.apps.train",
     ):
         assert m in MODULES, m
     assert (ROOT / "chip_smoke.py").exists()
@@ -62,12 +67,15 @@ def test_port_sources_name_no_jax_import():
         assert m is None, f"{f}: {m.group(0)!r}"
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """Without a card, every entry point not given device='cpu' raises."""
     from mlp_ppo_2ply_multi_tpu_torch.actor import rollout
+    from mlp_ppo_2ply_multi_tpu_torch.apps import train
     from mlp_ppo_2ply_multi_tpu_torch.core.config import Config
     from mlp_ppo_2ply_multi_tpu_torch.core.device import resolve_device
     from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
+    from mlp_ppo_2ply_multi_tpu_torch.io import checkpoint
+    from mlp_ppo_2ply_multi_tpu_torch.learner import td
     from mlp_ppo_2ply_multi_tpu_torch.model import value_net
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -76,8 +84,26 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         vec_env.reset(8)
     cfg = Config.production()
-    params = value_net.init_params(cfg.model)
+    ckpt = str(ROOT / "checkpoints" / "side0_20480000.pth")
+    for make in (
+        lambda: value_net.init_params(cfg.model),
+        lambda: value_net.load_checkpoint(ckpt),
+        lambda: value_net.from_state_dict(torch.load(ckpt, weights_only=True)),
+        lambda: value_net.params_from_jax(value_net.init_params(cfg.model, device="cpu")),
+        lambda: td.init_train_state(cfg),
+        lambda: checkpoint.restore(str(tmp_path)),
+        lambda: train.main(["--updates", "1", "--checkpoint-dir", str(tmp_path / "c"),
+                            "--metrics-dir", str(tmp_path / "m")]),
+    ):
+        with pytest.raises(RuntimeError):
+            make()
+    assert not (tmp_path / "m").exists()
+    params = value_net.init_params(cfg.model, device="cpu")
+    state = td.init_train_state(cfg, device="cpu")
     st = vec_env.reset(8, device="cpu")
+    _, traj = rollout.rollout_loop(params, st, 1.0, cfg, 2, True, device="cpu")
+    with pytest.raises(RuntimeError):  # a CPU state, the card asked for
+        td.update(state, traj, cfg)
     with pytest.raises(RuntimeError):
         rollout.rollout_step(params, st, 1.0, cfg, True)
     with pytest.raises(RuntimeError):

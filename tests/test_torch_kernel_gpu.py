@@ -90,7 +90,7 @@ def test_fused_value_kernel_raises_on_what_it_cannot_take():
     with pytest.raises(ValueError):
         fv.fused_value(boards.transpose(0, 1), torch.zeros(2, 8, device=dev), params)
     with pytest.raises(ValueError):
-        fv.fused_value(boards, torch.zeros(8, 1, device=dev), value_net.load_checkpoint(CKPT))
+        fv.fused_value(boards, torch.zeros(8, 1, device=dev), value_net.load_checkpoint(CKPT, device="cpu"))
 
 
 # ---------------------------------------------------------------------------

@@ -248,7 +248,7 @@ def _port_action(tparams, ts, noise, cfg, temp):
 @pytest.mark.parametrize("td_mode", ["reference", "side0"])
 def test_rollout_step_teacher_forced(td_mode):
     jparams = jV.load_torch_checkpoint(CKPT)
-    tparams = tV.params_from_jax({k: np.asarray(v) for k, v in jparams.items()})
+    tparams = tV.params_from_jax({k: np.asarray(v) for k, v in jparams.items()}, "cpu")
     jc, tc = _cfg(jcfg, td_mode), _cfg(tcfg, td_mode)
     temp = 0.7
     jstep, jnoise = _jax_step_fns(jparams, jc, jnp.float32(temp))
@@ -287,7 +287,7 @@ def test_rollout_step_teacher_forced(td_mode):
 
 def test_rollout_loop_on_cpu_is_seeded_and_conserves_checkers():
     cfg = _cfg(tcfg, "side0")
-    params = tV.init_params(cfg.model, torch.Generator().manual_seed(1))
+    params = tV.init_params(cfg.model, torch.Generator().manual_seed(1), "cpu")
     runs = []
     for _ in range(2):
         gen = torch.Generator().manual_seed(9)
@@ -306,18 +306,19 @@ def test_rollout_loop_on_cpu_is_seeded_and_conserves_checkers():
 
 
 def test_rollout_step_rejects_unported_branches():
-    """The merged 1-ply actor and the tiered pipeline still raise; 2-ply is
-    ported (tests/test_torch_twoply*.py): its step runs and refuses the
-    1-ply noise type."""
+    """The tiered pipeline still raises; the merged 1-ply actor
+    (tests/test_torch_train.py) and 2-ply (tests/test_torch_twoply*.py) are
+    ported: their steps run, and the 2-ply step refuses the 1-ply noise
+    type."""
     base = _cfg(tcfg, "reference")
-    params = tV.init_params(base.model)
+    params = tV.init_params(base.model, device="cpu")
     st = tE.reset(16, torch.Generator().manual_seed(0), device="cpu")
-    for cfg in (
-        base.replace(movegen=dataclasses.replace(base.movegen, split_planes=False)),
-        base.replace(movegen=dataclasses.replace(base.movegen, tiered=True)),
-    ):
-        with pytest.raises(NotImplementedError):
-            tR.rollout_step(params, st, 1.0, cfg, True, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tiered = base.replace(movegen=dataclasses.replace(base.movegen, tiered=True))
+        tR.rollout_step(params, st, 1.0, tiered, True, device="cpu")
+    merged = base.replace(movegen=dataclasses.replace(base.movegen, split_planes=False))
+    new, t = tR.rollout_step(params, st, 1.0, merged, True, gen=torch.Generator(), device="cpu")
+    assert bool(t.recorded.any()) and bool(tB.checker_conservation_ok(new.board).all())
     twoply = base.replace(
         twoply=dataclasses.replace(base.twoply, enabled=True, reply_a_max=16)
     )

@@ -198,7 +198,7 @@ def teacher_forced(td_mode, fused, seed, n, steps, **twoply):
             jax_rollout, (td_mode, fused, seed, n, steps, twoply)
         ).get(timeout=900)
     jparams = jV.load_torch_checkpoint(CKPT)
-    tparams = tV.params_from_jax({k: np.asarray(v) for k, v in jparams.items()})
+    tparams = tV.params_from_jax({k: np.asarray(v) for k, v in jparams.items()}, "cpu")
     tc = twoply_cfg(tcfg, td_mode, fused, **twoply)
     temp = torch.tensor(TEMP)
     out = []
@@ -331,7 +331,7 @@ def test_topk_small_ties_match_jax():
 
 def test_rollout_loop_2ply_on_cpu_is_seeded_and_conserves_checkers():
     cfg = twoply_cfg(tcfg, "side0", True)
-    params = tV.init_params(cfg.model, torch.Generator().manual_seed(2))
+    params = tV.init_params(cfg.model, torch.Generator().manual_seed(2), "cpu")
     runs = []
     for _ in range(2):
         gen = torch.Generator().manual_seed(4)
@@ -349,7 +349,7 @@ def test_rollout_loop_2ply_on_cpu_is_seeded_and_conserves_checkers():
 
 def test_scan_scorer_and_value_first_raise():
     cfg = twoply_cfg(tcfg, "side0", False)
-    params = tV.init_params(cfg.model)
+    params = tV.init_params(cfg.model, device="cpu")
     boards = tB.initial_board((2, 4), "cpu")
     opp = torch.zeros(2, dtype=torch.int32)
     for tw in (

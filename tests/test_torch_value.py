@@ -61,7 +61,7 @@ def test_encoder_exact():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_forward_matches_jax_on_checkpoint(dtype):
     jparams = jV.load_torch_checkpoint(CKPT)
-    tparams = tV.load_checkpoint(CKPT)
+    tparams = tV.load_checkpoint(CKPT, "cpu")
     for k in jparams:
         np.testing.assert_array_equal(np.asarray(jparams[k]), tparams[k].numpy())
     boards, players = _cases(4, 512)
@@ -79,7 +79,7 @@ def test_forward_matches_jax_on_checkpoint(dtype):
 
 def test_params_from_jax_same_function():
     jparams = jV.init_params(jax.random.PRNGKey(7), JModelConfig())
-    tparams = tV.params_from_jax(_np_params(jparams))
+    tparams = tV.params_from_jax(_np_params(jparams), "cpu")
     for k in ("w1", "b1", "w2", "b2"):
         np.testing.assert_array_equal(np.asarray(jparams[k]), tparams[k].numpy())
         assert tparams[k].dtype == torch.float32
@@ -90,10 +90,10 @@ def test_params_from_jax_same_function():
 
 
 def test_state_dict_roundtrip(tmp_path):
-    params = tV.load_checkpoint(CKPT)
+    params = tV.load_checkpoint(CKPT, "cpu")
     path = str(tmp_path / "rt.pth")
     tV.save_checkpoint(params, path)
-    again = tV.load_checkpoint(path)
+    again = tV.load_checkpoint(path, "cpu")
     for k in params:
         assert torch.equal(params[k], again[k])
     # the port's state dict is the one the JAX package writes
@@ -106,7 +106,7 @@ def test_state_dict_roundtrip(tmp_path):
 
 def test_init_params_distribution():
     cfg = ModelConfig()
-    p = tV.init_params(cfg, torch.Generator().manual_seed(0))
+    p = tV.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     shapes = {"w1": (198, 128), "b1": (128,), "w2": (128, 1), "b2": (1,)}
     bounds = {
         "w1": np.sqrt(6.0 / (198 + 128)),
@@ -121,7 +121,7 @@ def test_init_params_distribution():
     w1 = p["w1"].numpy()
     assert abs(w1.mean()) < 0.01 * bounds["w1"] * 10
     assert abs(w1.std() - bounds["w1"] / np.sqrt(3)) < 0.02 * bounds["w1"]
-    q = tV.init_params(cfg, torch.Generator().manual_seed(0))
+    q = tV.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert all(torch.equal(p[k], q[k]) for k in p)
 
 
@@ -138,7 +138,7 @@ def test_fused_value_plain_matches_jax_kernel(params_from):
         jparams = jV.init_params(jax.random.PRNGKey(3), JModelConfig())
     else:
         jparams = jV.load_torch_checkpoint(CKPT)
-    tparams = tV.params_from_jax(_np_params(jparams))
+    tparams = tV.params_from_jax(_np_params(jparams), "cpu")
     boards, flags = _fused_inputs(5, 1000)
     # JAX's Pallas kernel runs in interpret mode on the CPU
     want = np.asarray(jFV.fused_value(jnp.asarray(boards), jnp.asarray(flags), jparams))
@@ -158,7 +158,7 @@ def test_fused_value_plain_matches_jax_kernel(params_from):
 
 def test_fused_value_plain_matches_f32_forward():
     jparams = jV.init_params(jax.random.PRNGKey(3), JModelConfig())
-    tparams = tV.params_from_jax(_np_params(jparams))
+    tparams = tV.params_from_jax(_np_params(jparams), "cpu")
     boards, flags = _fused_inputs(6, 500)
     tb = tB.Board(torch.from_numpy(boards))
     ref = tV.forward(tparams, tF.encode_board(tb, torch.from_numpy(flags)), ModelConfig())
@@ -177,7 +177,7 @@ def test_fused_value_plain_matches_f32_forward():
 
 
 def test_fused_value_rejects_what_it_cannot_route():
-    params = tV.init_params(ModelConfig(), torch.Generator().manual_seed(0))
+    params = tV.init_params(ModelConfig(), torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(ValueError):
         tFV.fused_value(torch.zeros(4, 52, dtype=torch.int32), torch.zeros(4), params)
     with pytest.raises(ValueError):
