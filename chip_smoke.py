@@ -72,9 +72,26 @@ step per episode. Phases, in order; any failure exits non-zero:
 18. train, sync: --mode sync --production --per-episode-updates, B = 256,
     1 update (one 300-step rollout, then 256 sequential Adam steps): one
     metrics line of finite values at episode count 256;
+19. no sync: one eager 1-ply (B = 4096) and one 2-ply (B = 1024) step with
+    the noise drawn ahead under ``torch.cuda.set_sync_debug_mode("error")``:
+    no op of the step synchronises the host with the card;
+20. graphed vs eager, 1-ply: ``rollout_chunked`` (64 steps, chunk 4: a
+    CUDA graph of 4 steps, captured once, replayed) against ``rollout_loop``
+    from the same state and generator seed: every integer and bool field of
+    the trajectory and the final state bit-equal, max |dv| printed; again
+    after one ``td.update`` of the same params tensors; 2 fused_value
+    launches a step, counted by replay;
+21. graphed vs eager, 2-ply: 8 steps at chunk 4, both kernels inside the
+    graph, bit-equal; 22 fused_value and 15 nd_tail launches a step;
+22. graphed times: ms a step and env-steps/s of replays at chunk 1, 4 and
+    16 (1-ply) and 1 and 4 (2-ply), each with its capture + instantiate
+    seconds, its memory pool's bytes, the device's busy ms a step and idle
+    share (torch.profiler), the graph's device ms a step with its replays
+    queued ahead of the card, and its launch gate;
 
 then the kernels line (launches summed over every path's timed run) and the
-result line.
+result line. Phases 4, 7, 10 and 13 time the eager step; the training runs
+(16-18) go through the graphed rollouts, as ``apps.train`` does.
 
 It imports torch, numpy and the port only. Without CUDA, or without the
 port beside it, it exits non-zero and prints no result.
@@ -134,6 +151,7 @@ TRAIN_2PLY = ["--two-ply", "--production", "--mode", "continuous",
               "--batch-games", str(B_TWOPLY), "--steps-per-update", "8", "--updates", "2"]
 TRAIN_SYNC = ["--mode", "sync", "--production", "--per-episode-updates",
               "--batch-games", "256", "--updates", "1"]
+GRAPH_STEPS_1PLY = 64  # graphed 1-ply rollouts: 16 replays of a 4-step chunk
 
 
 def log(*args) -> None:
@@ -1055,9 +1073,12 @@ def phase_learner(P, dev, gen, card):
 def run_train(P, flags, dev, tag, card):
     """``apps.train.main(flags)`` in-process, in a temp dir, with every
     kernel count set to 0 just before it and read just after; each
-    update's rollout and td.update are timed (synchronised around each) and
-    the final checkpoint's state and generator are kept."""
+    update's rollout (the graphed ``rollout`` in sync mode, else
+    ``rollout_chunked``; the first one captures its graph) and td.update
+    are timed (synchronised around each) and the final checkpoint's state
+    and generator are kept."""
     td, fv, nd, R = P["td"], P["fv"], P["nd"], P["rollout"]
+    rollout_fn = "rollout" if "sync" in flags else "rollout_chunked"
     learn_ms, roll_ms, saved = [], [], {}
     real_save = P["ckpt"].save
 
@@ -1083,7 +1104,7 @@ def run_train(P, flags, dev, tag, card):
         _sync(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         with _Swap(td, "update", timed(td.update, learn_ms)), \
-                _Swap(R, "rollout_loop", timed(R.rollout_loop, roll_ms)), \
+                _Swap(R, rollout_fn, timed(getattr(R, rollout_fn), roll_ms)), \
                 _Swap(P["ckpt"], "save", keep_save):
             fv.KERNEL.launches = 0
             nd.KERNEL.launches = 0
@@ -1212,6 +1233,212 @@ def phase_train_sync(P, dev, card):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# the graphed rollouts
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def syncs_raise(dev):
+    """Make any op that synchronises the host with the card raise."""
+    if dev.type != "cuda":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def phase_no_sync(P, params, cfgs, dev, gen, card):
+    """One eager step of each path (1-ply B = 4096, 2-ply B = 1024) with its
+    noise drawn ahead, a Python-float temperature and every synchronising
+    op made to raise."""
+    R, VE = P["rollout"], P["vec_env"]
+    for name, cfg, batch in cfgs:
+        state = VE.reset(batch, gen, device=dev)
+        state, _ = R.rollout_step(params, state, 1.0, cfg, True, gen=gen, device=dev)
+        noise = R.draw_noise(batch, cfg, gen, dev)
+        _sync(dev)
+        with syncs_raise(dev):
+            state, t = R.rollout_step(params, state, 1.0, cfg, True, noise=noise, device=dev)
+        _sync(dev)
+        log(f"[19 no sync] {name} step at B={batch}: no op synchronised the host with the "
+            f"card (torch.cuda.set_sync_debug_mode('error')); {int(t.recorded.sum())} "
+            f"decisions {card}")
+
+
+def compare_rollouts(eager, graphed, what):
+    """Every integer and bool leaf of two (state, trajectory) results
+    bit-equal; returns the largest |dv| of the float leaves."""
+    a = {**leaves(eager[0], "state."), **leaves(eager[1], "t.")}
+    b = {**leaves(graphed[0], "state."), **leaves(graphed[1], "t.")}
+    dv = 0.0
+    for k in a:
+        x, y = a[k], b[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"{what}: {k} {x.dtype}{tuple(x.shape)} vs {y.dtype}{tuple(y.shape)}")
+        if x.is_floating_point():
+            if not (torch.isfinite(x).all() and torch.isfinite(y).all()):
+                raise AssertionError(f"{what}: {k} not finite")
+            dv = max(dv, float((x - y).abs().max()))
+        elif not torch.equal(x, y):
+            raise AssertionError(f"{what}: {k} differs")
+    return dv
+
+
+def eager_and_graphed(P, params, cfg, batch, steps, chunk, seed, dev):
+    """``rollout_loop`` and ``rollout_chunked`` from one state and one
+    generator seed; the graphed run's launches of each kernel, counted from
+    0 just before it and read just after."""
+    R, VE, fv, nd = P["rollout"], P["vec_env"], P["fv"], P["nd"]
+    temp = cfg.train.initial_temperature
+    out = []
+    for graphed in (False, True):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = VE.reset(batch, gen, device=dev)
+        fv.KERNEL.launches = nd.KERNEL.launches = 0
+        if graphed:
+            out.append(R.rollout_chunked(params, state, temp, cfg, steps, chunk=chunk,
+                                         gen=gen, device=dev))
+        else:
+            out.append(R.rollout_loop(params, state, temp, cfg, steps, True, gen=gen,
+                                      device=dev))
+        _sync(dev)
+    return out[0], out[1], {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches}
+
+
+def _gate(launches, want, what):
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+
+
+def phase_graph_vs_eager_1ply(P, dev, card):
+    """The production 1-ply rollout graphed (64 steps, chunk 4) against the
+    eager loop from the same state and seed, then again after one td.update
+    of the same params tensors (the graph must read the new weights)."""
+    R, td = P["rollout"], P["td"]
+    cfg = production_config(P)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, per_episode_updates=False))
+    params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
+    steps, chunk = GRAPH_STEPS_1PLY, 4
+    eager, graphed, launches = eager_and_graphed(P, params, cfg, B_PROD, steps, chunk, 11, dev)
+    dv = compare_rollouts(eager, graphed, "graphed vs eager 1-ply")
+    _gate(launches["fused_value"], 2 * steps, "graphed 1-ply fused_value")
+    start = td.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)._replace(
+        params=params, opt_state=td.init_adam(params))
+    trained, metrics = td.update(start, graphed[1], cfg, dev)
+    if trained.params["w1"] is not params["w1"]:
+        raise AssertionError("td.update did not update the params in place")
+    eager2, graphed2, launches2 = eager_and_graphed(P, params, cfg, B_PROD, steps, chunk, 12, dev)
+    dv2 = compare_rollouts(eager2, graphed2, "graphed vs eager 1-ply after an update")
+    _gate(launches2["fused_value"], 2 * steps, "graphed 1-ply fused_value after an update")
+    # the update moved the values, so a graph still reading the old packed
+    # G would have taken other decisions
+    boards, flag = eager2[1].packed_board[0], 1 - eager2[1].player[0]
+    before = P["fv"].fused_value_plain(
+        boards, flag, P["value_net"].load_checkpoint(str(CKPT), device=dev))
+    moved = float((P["fv"].fused_value_plain(boards, flag, params) - before).abs().max())
+    stats = dict(batch=B_PROD, steps=steps, chunk=chunk, launches=launches["fused_value"],
+                 launches_after_update=launches2["fused_value"], max_abs_dv=dv,
+                 after_update_max_abs_dv=dv2, loss=float(metrics["loss"]),
+                 values_moved_by_update=moved, games_finished=int(graphed[1].done.sum()),
+                 card=card)
+    log(f"[20 graph vs eager 1-ply] every integer and bool field of {steps} steps and the "
+        f"final state bit-equal, before and after a td.update: {json.dumps(stats)}")
+    if moved == 0:
+        raise AssertionError("the update did not move the values")
+    return stats
+
+
+def phase_graph_vs_eager_2ply(P, dev, card):
+    """The 2-ply rollout graphed (8 steps, chunk 4), both kernels inside the
+    graph, against the eager loop."""
+    cfg = twoply_config(P)
+    params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
+    steps, chunk = STEPS_2PLY, 4
+    eager, graphed, launches = eager_and_graphed(P, params, cfg, B_TWOPLY, steps, chunk, 13, dev)
+    dv = compare_rollouts(eager, graphed, "graphed vs eager 2-ply")
+    _gate(launches, {"fused_value": FV_LAUNCHES_PER_STEP_2PLY * steps,
+                     "nd_tail": ND_LAUNCHES_PER_STEP * steps}, "graphed 2-ply")
+    stats = dict(batch=B_TWOPLY, steps=steps, chunk=chunk, launches=launches, max_abs_dv=dv,
+                 card=card)
+    log(f"[21 graph vs eager 2-ply] every integer and bool field bit-equal: {json.dumps(stats)}")
+    return stats
+
+
+def _graph_busy(run, steps, dev):
+    """Device busy ms a step of ``run`` (a graphed rollout) under
+    torch.profiler; None where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        _sync(dev)
+    busy_us = sum(_dev_t(e) for e in prof.key_averages())
+    return busy_us / steps / 1e3 if busy_us > 0 else None
+
+
+def phase_graph_times(P, dev, card):
+    """Graphed ms a step and env-steps/s: 1-ply (B = 4096) at chunk 1, 4 and
+    16, 2-ply (B = 1024) at chunk 1 and 4. Each: the first call's capture +
+    instantiate seconds and the graph pool's bytes (memory_stats before and
+    after the capture); then a timed call of replays only (host clock around
+    it, card synchronised), its launches gated, the device's busy time
+    under torch.profiler in a third call, and the graph's replays alone
+    queued behind a spin kernel (CUDA events)."""
+    R, VE, fv, nd = P["rollout"], P["vec_env"], P["fv"], P["nd"]
+    params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
+    out = {}
+    for name, cfg, batch, steps, chunks, per_step in (
+        ("1ply", production_config(P), B_PROD, GRAPH_STEPS_1PLY, (1, 4, 16),
+         {"fused_value": 2, "nd_tail": 0}),
+        ("2ply", twoply_config(P), B_TWOPLY, STEPS_2PLY, (1, 4),
+         {"fused_value": FV_LAUNCHES_PER_STEP_2PLY, "nd_tail": ND_LAUNCHES_PER_STEP}),
+    ):
+        temp = cfg.train.initial_temperature
+        gen = torch.Generator(device=dev).manual_seed(14)
+        for chunk in chunks:
+            R.clear_graphs()
+            state = VE.reset(batch, gen, device=dev)
+            state, _ = R.rollout_chunked(params, state, temp, cfg, chunk, chunk=chunk,
+                                         gen=gen, device=dev)  # captures
+            info = dict(next(reversed(R.GRAPHS.values())).info) if R.GRAPHS else {}
+            _sync(dev)
+            fv.KERNEL.launches = nd.KERNEL.launches = 0
+            t0 = time.perf_counter()
+            state, traj = R.rollout_chunked(params, state, temp, cfg, steps, chunk=chunk,
+                                            gen=gen, device=dev)
+            _sync(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches}
+            _gate(launches, {k: n * steps for k, n in per_step.items()},
+                  f"graphed {name} chunk {chunk}")
+            busy = _graph_busy(lambda: R.rollout_chunked(
+                params, state, temp, cfg, steps, chunk=chunk, gen=gen, device=dev), steps, dev)
+            # the graph alone, replays queued ahead of the card: the
+            # step's device time with no host in the way
+            graph_ms = (_queued_ms_per_round([R.GRAPHS[next(reversed(R.GRAPHS))].graph.replay],
+                                             dev, rounds=max(2, 16 // chunk)) / chunk
+                        if R.GRAPHS else None)
+            ms = wall_ms / steps
+            row = {**info, **dict(
+                batch=batch, steps=steps, chunk=chunk, ms_per_step=ms,
+                env_steps_per_s=batch * steps / (wall_ms / 1e3),
+                device_busy_ms_per_step=busy,
+                idle_share=None if busy is None else 1 - busy / ms,
+                graph_replay_device_ms_per_step=graph_ms,
+                launches=launches, games_finished=int(traj.done.sum()),
+                values_finite=bool(torch.isfinite(traj.value).all()), card=card)}
+            log(f"[22 graph times] {name}: {json.dumps(row)}")
+            if not row["values_finite"]:
+                raise AssertionError(f"graphed {name} values not finite")
+            out[f"{name}_chunk{chunk}"] = row
+    R.clear_graphs()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
@@ -1280,6 +1507,15 @@ def main() -> int:
     train_sync = phase_train_sync(P, dev, card)
     trains = {"train_1ply": train1, "train_2ply": train2, "train_sync": train_sync}
 
+    R.clear_graphs()
+    phase_no_sync(P, params, [("1-ply", cfg, B_PROD), ("2-ply", cfg2, B_TWOPLY)], dev, gen, card)
+    g1 = phase_graph_vs_eager_1ply(P, dev, card)
+    g2 = phase_graph_vs_eager_2ply(P, dev, card)
+    gt = phase_graph_times(P, dev, card)
+    graph_fv = (g1["launches"] + g1["launches_after_update"] + g2["launches"]["fused_value"]
+                + sum(r["launches"]["fused_value"] for r in gt.values()))
+    graph_nd = g2["launches"]["nd_tail"] + sum(r["launches"]["nd_tail"] for r in gt.values())
+
     kernels = [
         {
             "name": "fused_value",
@@ -1288,7 +1524,7 @@ def main() -> int:
             "replaces": KERNEL_REPLACES,
             # every path's timed run, each counted from 0 just before it
             "launches": stats["fused_value_launches"] + stats2["fused_value_launches"]
-            + sum(t["launches"]["fused_value"] for t in trains.values()),
+            + sum(t["launches"]["fused_value"] for t in trains.values()) + graph_fv,
             "max_abs_err": max(max_err, fv2_err),
             # one 1-ply production step's two launches (tier 1 + tier 2), summed;
             # ms is their device time with the launches queued ahead of the card
@@ -1301,6 +1537,7 @@ def main() -> int:
                 "1ply": {"launches": stats["fused_value_launches"], **fv1_step},
                 "2ply": {"launches": stats2["fused_value_launches"], **fv2_step},
                 **{k: {"launches": t["launches"]["fused_value"]} for k, t in trains.items()},
+                "graphs": {"launches": graph_fv},
             },
             "ok": True,
         },
@@ -1309,7 +1546,7 @@ def main() -> int:
             "route": "cuda",
             "source": ND_SOURCE,
             "replaces": ND_REPLACES,
-            "launches": stats2["nd_tail_launches"] + train2["launches"]["nd_tail"],
+            "launches": stats2["nd_tail_launches"] + train2["launches"]["nd_tail"] + graph_nd,
             "max_abs_err": nd_err,
             # one 2-ply step's 15 launches at [4096 rows, K = 96], summed
             "ms": nd_step["ms"],
@@ -1320,7 +1557,8 @@ def main() -> int:
             "ms_per_launch": nd_step["ms"] / nd_step["calls_per_step"],
             "wrapper_ms": nd_step["wrapper_ms"],
             "paths": {"2ply": {"launches": stats2["nd_tail_launches"]},
-                      "train_2ply": {"launches": train2["launches"]["nd_tail"]}},
+                      "train_2ply": {"launches": train2["launches"]["nd_tail"]},
+                      "graphs": {"launches": graph_nd}},
             "ok": True,
         },
     ]

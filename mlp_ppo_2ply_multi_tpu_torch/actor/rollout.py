@@ -31,12 +31,29 @@ Port of ``mlp_ppo_2ply_multi_tpu/actor/rollout.py``, three of its branches:
 Randomness is injected through ``StepNoise`` (1-ply) or ``TwoPlyNoise``
 (2-ply). Without one, a step draws its noise from the caller's
 ``torch.Generator`` on the device. The tiered pipeline
-(``movegen.tiered``) raises ``NotImplementedError``. The step never builds
-an autograd graph.
+(``movegen.tiered``) raises ``NotImplementedError``, and so does a move
+generator other than the canonical one (``movegen.legal_moves``). The step
+never builds an autograd graph.
+
+Three functions stack steps into a [T, B] trajectory:
+
+* ``rollout_loop`` dispatches every op of every step from Python;
+* ``rollout_chunked`` (JAX: ``chunk`` steps as one compiled program with
+  the state donated) runs ``chunk`` steps as one captured CUDA graph on a
+  card, replayed T / chunk times; on the CPU the same chunks run eagerly;
+* ``rollout`` (JAX: one ``lax.scan`` over the episode) is
+  ``rollout_chunked`` with chunk 4 where 4 divides T, else 1.
+
+All three draw the same noise stream from one generator: the graphed
+ones draw each step's noise outside the graph, in step order, so on one
+seed they give ``rollout_loop``'s trajectory.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+import contextlib
+import time
+from collections import OrderedDict
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -49,17 +66,23 @@ from mlp_ppo_2ply_multi_tpu_torch.core.device import (
 from mlp_ppo_2ply_multi_tpu_torch.encoder.features import encode_board
 from mlp_ppo_2ply_multi_tpu_torch.engine import board as B
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
-from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import MoveSet, board_take, board_where
+from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import (
+    MoveSet,
+    board_take,
+    board_where,
+    legal_moves,
+)
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen2 import (
     SplitMoves,
     _select_set_bits,
     _take0,
-    legal_moves,
+    _tmap,
     legal_moves_split,
 )
 from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
 from mlp_ppo_2ply_multi_tpu_torch.model import value_net
-from mlp_ppo_2ply_multi_tpu_torch.ops.fused_value import fused_value
+from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import GraphLaunches
+from mlp_ppo_2ply_multi_tpu_torch.ops.fused_value import fused_value, packing_once_per_capture
 from mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax import select_action_2ply
 
 _NEG = -1e9
@@ -146,6 +169,15 @@ def draw_noise(
         reset_opener=vec_env.roll_nondouble(gen, (batch,), device),
         reset_first=vec_env.roll_nondouble(gen, (batch,), device),
     )
+
+
+def _temperature(temperature, dev: torch.device) -> torch.Tensor:
+    """The temperature as a 0-d f32 tensor on ``dev``. A Python number is
+    written by a fill on the device, not copied from the host, so the step
+    never synchronises the host with the card."""
+    if isinstance(temperature, torch.Tensor):
+        return temperature.to(device=dev, dtype=torch.float32)
+    return torch.full((), float(temperature), dtype=torch.float32, device=dev)
 
 
 def _sample(values, valid, sgn, gumbel_noise, temperature) -> torch.Tensor:
@@ -336,7 +368,7 @@ def rollout_step(
     want = TwoPlyNoise if cfg.twoply.enabled else StepNoise
     if not isinstance(noise, want):
         raise TypeError(f"this step takes a {want.__name__}, got {type(noise).__name__}")
-    temperature = torch.as_tensor(temperature, dtype=torch.float32, device=dev)
+    temperature = _temperature(temperature, dev)
 
     if cfg.twoply.enabled:
         moves = legal_moves(state.board, state.player, state.dice, cfg.movegen)
@@ -414,3 +446,255 @@ def rollout_loop(
         )
         ts.append(t)
     return state, Transition(*(torch.stack(xs) for xs in zip(*ts)))
+
+
+# ---------------------------------------------------------------------------
+# chunked and scanned rollouts: captured CUDA graphs of the step
+# ---------------------------------------------------------------------------
+
+Noise = Union[StepNoise, TwoPlyNoise]
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a tensor or a nested NamedTuple, in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for x in tree for t in _leaves(x)]
+
+
+def _copy_into(dst, src) -> None:
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        d.copy_(s)
+
+
+def _run_chunk(params, state, temperature, cfg: Config, continuous: bool,
+               noises: Sequence[Noise], dev: torch.device):
+    """``len(noises)`` steps; returns the final state and their [chunk, B]
+    transition stack."""
+    ts = []
+    for nz in noises:
+        state, t = rollout_step(params, state, temperature, cfg, continuous, noise=nz,
+                                device=dev)
+        ts.append(t)
+    return state, Transition(*(torch.stack(xs) for xs in zip(*ts)))
+
+
+@contextlib.contextmanager
+def _syncs_raise() -> Iterator[None]:
+    """Make an op that synchronises the host with the card raise, naming
+    itself in the traceback, instead of breaking a capture."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+_STREAMS: Dict[str, torch.cuda.Stream] = {}  # device -> capture stream
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    if str(dev) not in _STREAMS:
+        _STREAMS[str(dev)] = torch.cuda.Stream(dev)
+    return _STREAMS[str(dev)]
+
+
+class ChunkGraph:
+    """``chunk`` rollout steps captured as one CUDA graph.
+
+    Its static inputs are the env state, one noise per step and the
+    temperature; the captured chunk ends by copying its final state into the
+    state buffers (the counterpart of JAX's donated state), so the state
+    stays in them from one replay to the next. ``traj`` holds the last
+    replay's [chunk, B] transitions. Built by running the first chunk
+    eagerly on the capture stream (the warm-up, and real work: the caller
+    takes its transitions from ``warmup``, its final state is in the
+    buffers), then capturing. ``info`` has the capture's seconds (with
+    instantiation) and the bytes its memory pool holds."""
+
+    def __init__(self, params, state, temperature, cfg: Config, chunk: int,
+                 continuous: bool, dev: torch.device, noises: Sequence[Noise]):
+        stream = _capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self.temp = _temperature(temperature, dev).clone()
+            with _syncs_raise():
+                state, traj = _run_chunk(params, state, self.temp, cfg, continuous, noises, dev)
+            self.state = _tmap(torch.clone, state)
+            self.noise = [_tmap(torch.clone, nz) for nz in noises]
+        self.warmup: Optional[Transition] = traj
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_stats(dev)
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        self.launches = GraphLaunches()
+        try:
+            with self.launches, packing_once_per_capture(), \
+                    torch.cuda.graph(self.graph, stream=stream):
+                with _syncs_raise():
+                    st, self.traj = _run_chunk(
+                        params, self.state, self.temp, cfg, continuous, self.noise, dev)
+                    _copy_into(self.state, st)
+        except RuntimeError as e:
+            if isinstance(e, NotImplementedError):
+                raise
+            raise RuntimeError(
+                f"capturing {chunk} rollout steps as a CUDA graph failed: {e}") from e
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        mem1 = torch.cuda.memory_stats(dev)
+        delta = lambda k: mem1.get(k, 0) - mem0.get(k, 0)
+        self.info = dict(
+            chunk=chunk, batch=state.player.shape[0], capture_s=seconds,
+            pool_reserved_bytes=delta("reserved_bytes.all.current"),
+            pool_allocated_bytes=delta("allocated_bytes.all.current"),
+            launches_per_replay={k.src.stem: n for k, n in self.launches.per_replay.items()},
+        )
+
+    def replay(self, noises: Sequence[Noise], state=None, temperature=None) -> None:
+        """One chunk on the current stream, from ``state`` and at
+        ``temperature`` (None: those the buffers hold, the last replay's
+        final state); counts the launches it ran."""
+        if state is not None:
+            _copy_into(self.state, state)
+        if isinstance(temperature, torch.Tensor):
+            self.temp.copy_(temperature)
+        elif temperature is not None:
+            self.temp.fill_(float(temperature))
+        for buf, nz in zip(self.noise, noises):
+            _copy_into(buf, nz)
+        self.graph.replay()
+        self.launches.replayed()
+
+
+GRAPH_SETS = 4  # captured graphs kept, the most recently used
+# (cfg, chunk, continuous, device, params storage, state shapes) -> graph
+GRAPHS: "OrderedDict[tuple, ChunkGraph]" = OrderedDict()
+
+
+def _graph_key(params, state, cfg: Config, chunk: int, continuous: bool) -> tuple:
+    """A graph reads the params where they were when it was captured: the
+    key holds each tensor's storage address, so params moved to another
+    storage (a restored checkpoint, a new dict) are captured anew, while an
+    in-place update (the optimizer's step) is read by the next replay."""
+    sig = lambda t: (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+    return (
+        cfg, chunk, continuous, str(state.board.data.device),
+        tuple((k, sig(params[k])) for k in sorted(params)),
+        tuple((tuple(t.shape), t.dtype) for t in _leaves(state)),
+    )
+
+
+def clear_graphs() -> None:
+    """Drop every captured graph and its memory pool."""
+    GRAPHS.clear()
+
+
+def _on(noise: Noise, dev: torch.device) -> Noise:
+    return _tmap(lambda t: t.to(dev), noise)
+
+
+@torch.no_grad()
+def rollout_chunked(
+    params,
+    state: vec_env.EnvState,
+    temperature,
+    cfg: Config,
+    num_steps: int,
+    chunk: int = 4,
+    continuous: bool = True,
+    gen: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
+    noise: Optional[Sequence[Noise]] = None,
+) -> Tuple[vec_env.EnvState, Transition]:
+    """``num_steps`` lockstep steps, ``chunk`` at a time; returns the final
+    state and a [num_steps, B] transition stack in step order. The
+    counterpart of JAX's ``rollout_chunked`` (``num_steps % chunk == 0``).
+
+    On a card the chunk is one CUDA graph, captured at the first call for
+    (cfg, B, chunk, continuous, device, params storage) and replayed
+    num_steps / chunk times at this and every later call; the first call
+    runs its first chunk eagerly, as the warm-up before the capture. A
+    capture that fails raises: there is no eager fallback. On the CPU the
+    chunks run eagerly.
+
+    Each step's noise is drawn outside the graph from ``gen``, in step
+    order, so on one seed this returns ``rollout_loop``'s trajectory;
+    ``noise`` (``num_steps`` StepNoise or TwoPlyNoise) replaces the draws.
+    ``state`` and ``params`` must lie on ``device`` (default ``cuda``);
+    ``state`` is not changed."""
+    dev = resolve_device(device)
+    check_on(state.board.data, dev, "state")
+    check_on(params["w1"], dev, "params")
+    if chunk < 1 or num_steps < 1 or num_steps % chunk:
+        raise ValueError(f"num_steps ({num_steps}) must be a positive multiple of chunk ({chunk})")
+    if noise is not None and len(noise) != num_steps:
+        raise ValueError(f"noise has {len(noise)} steps, num_steps is {num_steps}")
+    b = state.player.shape[0]
+
+    def chunk_noise(c: int) -> List[Noise]:
+        if noise is not None:
+            return [_on(nz, dev) for nz in noise[c * chunk:(c + 1) * chunk]]
+        return [draw_noise(b, cfg, gen, dev) for _ in range(chunk)]
+
+    out: List[torch.Tensor] = []
+
+    def keep(c: int, traj: Transition) -> None:
+        if not out:
+            out.extend(torch.empty((num_steps, *x.shape[1:]), dtype=x.dtype, device=dev)
+                       for x in traj)
+        for dst, src in zip(out, traj):
+            dst[c * chunk:(c + 1) * chunk].copy_(src)
+
+    n_chunks = num_steps // chunk
+    if dev.type != "cuda":
+        for c in range(n_chunks):
+            state, traj = _run_chunk(params, state, temperature, cfg, continuous,
+                                     chunk_noise(c), dev)
+            keep(c, traj)
+        return state, Transition(*out)
+
+    key = _graph_key(params, state, cfg, chunk, continuous)
+    g = GRAPHS.get(key)
+    first = 0
+    if g is None:
+        g = ChunkGraph(params, state, temperature, cfg, chunk, continuous, dev,
+                       chunk_noise(0))
+        keep(0, g.warmup)
+        g.warmup = None
+        GRAPHS[key] = g
+        while len(GRAPHS) > GRAPH_SETS:
+            GRAPHS.popitem(last=False)
+        first = 1
+    GRAPHS.move_to_end(key)
+    for c in range(first, n_chunks):
+        if c == 0:
+            g.replay(chunk_noise(c), state, temperature)
+        else:
+            g.replay(chunk_noise(c))
+        keep(c, g.traj)
+    return _tmap(torch.clone, g.state), Transition(*out)
+
+
+def rollout(
+    params,
+    state: vec_env.EnvState,
+    temperature,
+    cfg: Config,
+    num_steps: int,
+    continuous: bool = False,
+    gen: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
+    noise: Optional[Sequence[Noise]] = None,
+) -> Tuple[vec_env.EnvState, Transition]:
+    """The counterpart of JAX's scanned ``rollout`` (one ``lax.scan`` over
+    ``num_steps``): ``rollout_chunked`` with chunk 4 where 4 divides
+    num_steps, else 1, so a 300-step episode is 75 replays of a 4-step
+    graph. In sync mode call it with a fresh state and num_steps =
+    cfg.env.max_timesteps."""
+    chunk = 4 if num_steps % 4 == 0 else 1
+    return rollout_chunked(params, state, temperature, cfg, num_steps, chunk=chunk,
+                           continuous=continuous, gen=gen, device=device, noise=noise)

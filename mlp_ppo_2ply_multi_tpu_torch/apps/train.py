@@ -9,14 +9,19 @@ Port of ``mlp_ppo_2ply_multi_tpu/apps/train.py``. Two rollout modes
   * ``continuous`` — finished games auto-reset, so every lockstep step does
     useful work; a fused update every --steps-per-update steps.
 
+The rollouts are the JAX CLI's: ``actor.rollout_chunked`` in continuous
+mode (chunk 4 where 4 divides --steps-per-update, else 1) and
+``actor.rollout`` in sync mode. On a card each is a captured CUDA graph of
+the step: the first update captures it, and every later update replays it.
+
 Randomness comes from one ``torch.Generator`` on the device, seeded with
 --seed: params, resets and every rollout step draw from it, and checkpoints
 keep its state. Each update makes one host pull: its metrics, the episode
 counters and the temperature packed into one vector (``td.pack_metrics``).
 
 Flags the port does not serve exit with status 2 and name the ROADMAP item:
---data/--model above 1 and --fused-rollout (A15; a CUDA graph of the
-rollout is A9), --tiered (A16) and --remote-dir (A15).
+--data/--model above 1 and --fused-rollout (A15), --tiered (A16) and
+--remote-dir (A15).
 
 Usage:
     python -m mlp_ppo_2ply_multi_tpu_torch.apps.train --production \\
@@ -146,7 +151,7 @@ def train_sync(cfg: Config, args, writer: MetricsWriter, dev: torch.device):
             break
         env_state = vec_env.reset(B, gen, dev)
         temp = td.temperature(state.version, cfg)
-        _, traj = actor.rollout_loop(
+        _, traj = actor.rollout(
             state.params, env_state, temp, cfg, T, continuous=False, gen=gen, device=dev
         )
         state, metrics = td.update(state, traj, cfg, dev)
@@ -157,11 +162,11 @@ def train_sync(cfg: Config, args, writer: MetricsWriter, dev: torch.device):
 
 
 def train_continuous_single(cfg: Config, args, writer: MetricsWriter, dev: torch.device):
-    """Continuous training on one card: ``actor.rollout_loop`` of
-    --steps-per-update steps, then the fused TD(0) update. A resume
-    restores the learner and the generator and re-creates the games, as the
-    JAX package does, so only a sync-mode resume repeats an uninterrupted
-    run."""
+    """Continuous training on one card: ``actor.rollout_chunked`` of
+    --steps-per-update steps (chunk 4 where 4 divides them, else 1, as the
+    JAX CLI chunks), then the fused TD(0) update. A resume restores the
+    learner and the generator and re-creates the games, as the JAX package
+    does, so only a sync-mode resume repeats an uninterrupted run."""
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, per_episode_updates=False))
     gen, state = _start(cfg, dev)
     env_state = vec_env.reset(cfg.train.batch_games, gen, dev)
@@ -169,13 +174,14 @@ def train_continuous_single(cfg: Config, args, writer: MetricsWriter, dev: torch
         state = _resume(cfg, gen, dev)
     tput = Throughput()
     last_saved = int(state.episode_count)
+    chunk = 4 if args.steps_per_update % 4 == 0 else 1
     for u in range(args.updates):
         if _STOP:
             break
         temp = td.temperature(state.version, cfg)
-        env_state, traj = actor.rollout_loop(
-            state.params, env_state, temp, cfg, args.steps_per_update, continuous=True,
-            gen=gen, device=dev,
+        env_state, traj = actor.rollout_chunked(
+            state.params, env_state, temp, cfg, args.steps_per_update, chunk=chunk,
+            continuous=True, gen=gen, device=dev,
         )
         state, metrics = td.update(state, traj, cfg, dev)
         metrics["episodes_done"] = traj.boundary.sum()
@@ -225,7 +231,7 @@ def _parser() -> argparse.ArgumentParser:
                          "widths (fast-vs-full quality control arm)")
     ap.add_argument("--fused-rollout", action="store_true",
                     help="the JAX package's fused mesh train step: not ported "
-                         "(ROADMAP A15; a CUDA graph of the rollout is A9)")
+                         "(ROADMAP A15)")
     ap.add_argument("--two-ply", action="store_true",
                     help="self-play with the 2-ply expectimax rerank policy "
                          "(on a card only with --production)")
@@ -242,7 +248,7 @@ def _unported(args):
     if args.data > 1 or args.model > 1:
         return "--data/--model above 1 are not ported (ROADMAP A15)"
     if args.fused_rollout:
-        return "--fused-rollout is not ported (ROADMAP A15; a CUDA graph of the rollout is A9)"
+        return "--fused-rollout is not ported (ROADMAP A15)"
     if args.tiered:
         return "--tiered is not ported (ROADMAP A16)"
     if args.remote_dir:

@@ -18,6 +18,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from mlp_ppo_2ply_multi_tpu_torch.core.device import device_constant
 from mlp_ppo_2ply_multi_tpu_torch.core.types import (
     BAR,
     BEAR_OFF,
@@ -43,10 +44,14 @@ _INITIAL[0], _INITIAL[11], _INITIAL[16], _INITIAL[18] = 2, 5, 3, 5
 _INITIAL[24 + 23], _INITIAL[24 + 12], _INITIAL[24 + 7], _INITIAL[24 + 5] = 2, 5, 3, 5
 
 
+def initial_cells(device: torch.device) -> torch.Tensor:
+    """The starting position int8 [52], made once per device."""
+    return device_constant("board.initial", _INITIAL, device)
+
+
 def initial_board(batch_shape: Tuple[int, ...], device: torch.device) -> Board:
     """Batch of starting positions (reference immutable_board.py:27-70)."""
-    init = torch.as_tensor(_INITIAL, device=device)
-    return Board(data=init.expand(*batch_shape, N_CELLS).clone())
+    return Board(data=initial_cells(device).expand(*batch_shape, N_CELLS).clone())
 
 
 def _p(player: torch.Tensor) -> torch.Tensor:
@@ -118,8 +123,13 @@ _HOME_MASK[0, 18:24] = True  # P1 home, conditions.py:173
 _HOME_MASK[1, 0:6] = True  # P2 home, conditions.py:171
 
 
+def home_mask(device: torch.device) -> torch.Tensor:
+    """bool [2, 24]: each player's home points, made once per device."""
+    return device_constant("board.home_mask", _HOME_MASK, device)
+
+
 def _home_mask(player: torch.Tensor, device: torch.device) -> torch.Tensor:
-    hm = torch.as_tensor(_HOME_MASK, device=device)
+    hm = home_mask(device)
     return torch.where(_p(player)[..., None] == 0, hm[0], hm[1])
 
 

@@ -14,7 +14,9 @@ The 27-slot single-die move table (reference get_moves_one_die.py:13-251):
   26     exact-point bear-off
 Slot order == reference emission order.
 
-The sorted engine (``algo="sorted"``) is not ported yet.
+``legal_moves`` dispatches on ``MoveGenConfig.algo`` as the JAX module's
+does: "canonical" is the sortless engine of ``movegen2``; the sorted engine
+(``algo="sorted"``) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from mlp_ppo_2ply_multi_tpu_torch.core.config import MoveGenConfig
 from mlp_ppo_2ply_multi_tpu_torch.core.types import BAR, BEAR_OFF, NUM_POINTS
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import (
     Board,
@@ -271,3 +274,29 @@ def board_take(b: Board, idx: torch.Tensor) -> Board:
 def board_where(pred: torch.Tensor, a: Board, b: Board) -> Board:
     """Per-entry select; pred bool[..., K] aligned with the entry axis."""
     return Board(data=torch.where(pred[..., None], a.data, b.data))
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+
+def check_canonical(cfg: MoveGenConfig) -> None:
+    """Raise unless ``cfg.algo`` names the ported (canonical) engine."""
+    if cfg.algo != "canonical":
+        raise NotImplementedError(
+            f"MoveGenConfig.algo={cfg.algo!r}: only the canonical engine is ported; "
+            "the sorted reference-order engine is ROADMAP A14"
+        )
+
+
+def legal_moves(
+    board: Board, player: torch.Tensor, dice: torch.Tensor, cfg: MoveGenConfig
+) -> MoveSet:
+    """All legal full moves per game as afterstate boards, capped at
+    cfg.a_max (Q7). Dispatches on ``cfg.algo`` (JAX ``movegen.py:870-891``):
+    "canonical" is ``movegen2.legal_moves``; any other engine raises."""
+    check_canonical(cfg)
+    from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
+
+    return movegen2.legal_moves(board, player, dice, cfg)

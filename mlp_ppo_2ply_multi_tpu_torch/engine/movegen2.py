@@ -45,6 +45,7 @@ from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import (
     board_expand,
     board_take,
     board_where,
+    check_canonical,
     ctx_entry_axis,
     slot_ctx,
     slot_params,
@@ -721,8 +722,10 @@ class SplitMoves(NamedTuple):
 def legal_moves_split(
     board: Board, player: torch.Tensor, dice: torch.Tensor, cfg: MoveGenConfig
 ) -> SplitMoves:
-    """Plane-form legal moves. Requires the tiered nd tail (0 < nd_tier <
-    nd_dedup_k), the doubles sub-batch and signature dedup; flat [n] batch."""
+    """Plane-form legal moves. Requires the canonical engine, the tiered nd
+    tail (0 < nd_tier < nd_dedup_k), the doubles sub-batch and signature
+    dedup; flat [n] batch."""
+    check_canonical(cfg)
     if not (cfg.nd_tier and cfg.nd_tier < cfg.nd_dedup_k):
         raise ValueError("legal_moves_split needs 0 < nd_tier < nd_dedup_k")
     if cfg.dd_subbatch_div <= 0:

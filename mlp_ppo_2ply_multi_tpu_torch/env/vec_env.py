@@ -18,7 +18,11 @@ import numpy as np
 import torch
 
 from mlp_ppo_2ply_multi_tpu_torch.core.config import EnvConfig
-from mlp_ppo_2ply_multi_tpu_torch.core.device import DeviceLike, resolve_device
+from mlp_ppo_2ply_multi_tpu_torch.core.device import (
+    DeviceLike,
+    device_constant,
+    resolve_device,
+)
 from mlp_ppo_2ply_multi_tpu_torch.engine import board as B
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import MoveSet, board_take
@@ -52,11 +56,16 @@ _ND_PAIRS = np.asarray(
 )
 
 
+def nd_pairs(device: torch.device) -> torch.Tensor:
+    """int32 [30, 2]: the ordered non-double pairs, made once per device."""
+    return device_constant("vec_env.nd_pairs", _ND_PAIRS, device)
+
+
 def roll_nondouble(
     gen: Optional[torch.Generator], shape: Tuple[int, ...], device: torch.device
 ) -> torch.Tensor:
     idx = torch.randint(0, 30, shape, generator=gen, device=device)
-    return torch.as_tensor(_ND_PAIRS, device=device)[idx]
+    return nd_pairs(device)[idx]
 
 
 def roll_dice(

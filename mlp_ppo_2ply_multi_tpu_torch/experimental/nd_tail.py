@@ -116,7 +116,8 @@ def kernel_operands(valid, b1a, b1b, b0, player, d_hi, d_lo, K: int):
 
 def launch_kernel(valid, b1a, b1b, b0, player, d_hi, d_lo, K: int, a_max: int) -> Outputs:
     """Launch the CUDA kernel on operands from ``kernel_operands`` on the
-    current stream. Counts the launch."""
+    current stream. Counts the launch (``CudaKernel.count_launch``: inside
+    a CUDA graph capture it counts once per replay)."""
     n = valid.shape[0]
     if not (valid.is_cuda and valid.dtype == torch.uint8 and player.dtype == torch.int32):
         raise ValueError("launch_kernel takes operands from kernel_operands")
@@ -141,7 +142,7 @@ def launch_kernel(valid, b1a, b1b, b0, player, d_hi, d_lo, K: int, a_max: int) -
         )
     if rc != 0:
         raise RuntimeError(f"nd_tail kernel launch failed: CUDA error {rc}")
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     return after, keep, n_pre, pct, kpair
 
 

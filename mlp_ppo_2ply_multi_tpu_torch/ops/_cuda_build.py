@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -66,6 +66,37 @@ def build(src: Path) -> Tuple[Path, Dict[str, object]]:
     return so, {"path": str(so), "cached": False, "seconds": secs, "ptxas": ptxas}
 
 
+_KERNELS: List["CudaKernel"] = []  # every CudaKernel made, for GraphLaunches
+
+
+class GraphLaunches:
+    """The kernel launches one CUDA graph holds, counted by the wrappers
+    while it is captured::
+
+        with GraphLaunches() as held:
+            ...  # capture
+        graph.replay()
+        held.replayed()  # each kernel's count += its launches in the graph
+    """
+
+    def __init__(self) -> None:
+        self.per_replay: Dict["CudaKernel", int] = {}
+
+    def __enter__(self) -> "GraphLaunches":
+        self._before = {k: k.captured for k in _KERNELS}
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.per_replay = {
+            k: k.captured - self._before.get(k, 0)
+            for k in _KERNELS if k.captured != self._before.get(k, 0)
+        }
+
+    def replayed(self, times: int = 1) -> None:
+        for k, n in self.per_replay.items():
+            k.launches += n * times
+
+
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """Contiguous and 16-byte aligned, as the kernels' 16-byte loads need (a
     fresh copy where it is not)."""
@@ -75,7 +106,12 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 
 class CudaKernel:
     """One CUDA source: its library (built and bound at first ``load``), its
-    build record, and the count of launches its wrapper made."""
+    build record, and the count of launches its wrapper made.
+
+    ``launches`` counts the launches that ran: each eager launch, and each
+    replay of a CUDA graph adds the launches captured in it
+    (``GraphLaunches``). ``captured`` counts the launches recorded into
+    graphs while they were captured, which run only when replayed."""
 
     def __init__(self, src: Path, bind: Callable[[ctypes.CDLL], None]) -> None:
         self.src = src
@@ -83,6 +119,15 @@ class CudaKernel:
         self.lib: Optional[ctypes.CDLL] = None
         self.build_info: Dict[str, object] = {}
         self.launches = 0
+        self.captured = 0
+        _KERNELS.append(self)
+
+    def count_launch(self) -> None:
+        """Count one launch of the wrapper on the current stream."""
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
 
     def load(self) -> ctypes.CDLL:
         if self.lib is None:

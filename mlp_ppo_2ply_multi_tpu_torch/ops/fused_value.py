@@ -24,17 +24,24 @@ Two implementations of one function, with the TPU kernel's rounding points
 
 ``fused_value`` routes a CPU tensor to the plain version and a CUDA tensor
 to the kernel, and raises on anything else.
+
+Under a CUDA graph capture the packed operands are made from the live
+parameter tensors by captured ops (``packed_params``), so every replay
+repacks and a replay after an in-place optimizer step reads the new
+weights; each launch counts once per replay (``CudaKernel.count_launch``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import weakref
 from collections import OrderedDict
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
+from mlp_ppo_2ply_multi_tpu_torch.core.device import device_constant
 from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import CudaKernel, aligned16
 
 N_CELLS = 52  # 48 point cells + bar x2 + off x2 (engine/board.py layout)
@@ -137,11 +144,15 @@ def g_index_map(hidden: int = HIDDEN) -> torch.Tensor:
     return (k * hidden + n).reshape(-1)
 
 
+def g_index(hidden: int, device: torch.device) -> torch.Tensor:
+    """``g_index_map(hidden)`` on ``device``, made once per device."""
+    return device_constant(f"fused_value.g_index.{hidden}", g_index_map(hidden), device)
+
+
 def pack_g(g: torch.Tensor) -> torch.Tensor:
     """G [208, h] laid out as the kernel reads it (``g_index_map``): a flat
     contiguous tensor of G's dtype."""
-    idx = g_index_map(g.shape[1]).to(g.device)
-    return g.reshape(-1)[idx].contiguous()
+    return g.reshape(-1)[g_index(g.shape[1], g.device)].contiguous()
 
 
 def pack_params(params: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -157,6 +168,22 @@ def pack_params(params: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Te
 # most recently used last
 _PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
 PACKED_SETS = 4  # parameter sets kept: a learner's params and actor snapshots
+# inside ``packing_once_per_capture``: parameter set -> operands packed by
+# captured ops; None outside it
+_CAPTURE_PACKED: Optional[Dict[tuple, Tuple[torch.Tensor, torch.Tensor]]] = None
+
+
+@contextlib.contextmanager
+def packing_once_per_capture() -> Iterator[None]:
+    """Around a CUDA graph capture: each parameter set is packed by captured
+    ops at its first ``packed_params`` call in the capture, and the later
+    calls of the same capture reuse those operands."""
+    global _CAPTURE_PACKED
+    _CAPTURE_PACKED = {}
+    try:
+        yield
+    finally:
+        _CAPTURE_PACKED = None
 
 
 def packed_params(params: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -168,9 +195,20 @@ def packed_params(params: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.
     in-place op on them (an optimizer's step, ``add_``, ``copy_`` under
     ``no_grad``) bumps ``_version`` and the next call repacks; a new
     parameter dict is a new set. A write through ``.data`` or ``set_``
-    bumps no version, and the kernel would go on using the old operands."""
+    bumps no version, and the kernel would go on using the old operands.
+
+    Under a CUDA graph capture the cache is not used: the operands are
+    packed by captured ops (once per capture inside
+    ``packing_once_per_capture``, else at every call), so each replay packs
+    the params' values at that moment."""
     ts = [params[k] for k in ("w1", "b1", "w2", "b2")]
     key = tuple(id(t) for t in ts)
+    if ts[0].is_cuda and torch.cuda.is_current_stream_capturing():
+        if _CAPTURE_PACKED is None:
+            return pack_params(params)
+        if key not in _CAPTURE_PACKED:
+            _CAPTURE_PACKED[key] = pack_params(params)
+        return _CAPTURE_PACKED[key]
     hit = _PACKED.get(key)
     if hit is not None:
         refs, versions, ops = hit
@@ -211,7 +249,9 @@ def kernel_operands(boards_data, flag, params) -> Tuple[torch.Tensor, ...]:
 
 def launch_kernel(boards, f, gpack, head) -> torch.Tensor:
     """Launch the CUDA kernel on operands from ``kernel_operands`` on the
-    current stream; f32 [...] out. Counts the launch."""
+    current stream; f32 [...] out. Counts the launch
+    (``CudaKernel.count_launch``: inside a CUDA graph capture it counts
+    once per replay)."""
     n = boards.numel() // N_CELLS
     ok = (
         boards.is_cuda and boards.dtype == torch.int8 and f.dtype == torch.int8
@@ -237,7 +277,7 @@ def launch_kernel(boards, f, gpack, head) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"fused_value kernel launch failed: CUDA error {rc}")
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     return out
 
 

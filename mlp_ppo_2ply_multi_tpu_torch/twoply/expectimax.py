@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from mlp_ppo_2ply_multi_tpu_torch.core.config import Config, MoveGenConfig
+from mlp_ppo_2ply_multi_tpu_torch.core.device import device_constant
 from mlp_ppo_2ply_multi_tpu_torch.encoder.features import encode_board
 from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
@@ -56,6 +57,12 @@ COUNTS = np.asarray(
 PROBS = COUNTS / 36.0
 # [1,1],[2,2],[3,3] get the 50-move cap (two_ply.py:119-121).
 SMALL_DOUBLE = np.asarray([r[0] == r[1] and r[0] <= 3 for r in ROLLS], dtype=bool)
+
+
+def rolls(device: torch.device) -> torch.Tensor:
+    """int64 [21, 2]: ``ROLLS`` on ``device``, made once per device. Row i
+    is roll i's dice, and its first entry the die of a double."""
+    return device_constant("expectimax.rolls", ROLLS.astype(np.int64), device)
 
 
 def topk_small(v: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -167,6 +174,7 @@ def _wor_unrolled(
 
     total = torch.zeros(bs, dtype=torch.float32, device=dev)
     flags = torch.zeros(bs, dtype=torch.bool, device=dev)
+    dice_all = rolls(dev)
     order = sorted(range(len(ROLLS)), key=lambda i: bool(ROLLS[i, 0] == ROLLS[i, 1]))
     nd_pos = 0
     for i in order:
@@ -188,7 +196,7 @@ def _wor_unrolled(
                 k = tw.nd_reply_widths[nd_pos]
                 mgr = dataclasses.replace(mg, nd_dedup_k=k, a_max=k)
             nd_pos += 1
-            dice = torch.tensor([r0, r1], device=dev)
+            dice = dice_all[i]
             ms = movegen2.enumerate_nondoubles_batched(
                 boards, opp_k, dice, mgr, passes=(pa, pb)
             )
@@ -203,7 +211,7 @@ def _wor_unrolled(
                     mg, w2=w2, w3=w3, w4=w4, a_max=am,
                     nd_dedup_k=min(mg.nd_dedup_k, am),
                 )
-            die = torch.tensor(r0, device=dev)
+            die = dice_all[i, 0]
             ms = movegen2.enumerate_doubles_batched(
                 boards, opp_k, die, mgd, s1=_at(s1_all, r0 - 1)
             )

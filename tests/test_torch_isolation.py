@@ -110,6 +110,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         rollout.rollout_loop(params, st, 1.0, cfg, 1)
     with pytest.raises(RuntimeError):
         rollout.rollout_step(params, st, 1.0, Config.production_twoply(), True)
+    with pytest.raises(RuntimeError):
+        rollout.rollout_chunked(params, st, 1.0, cfg, 4)
+    with pytest.raises(RuntimeError):
+        rollout.rollout(params, st, 1.0, cfg, 4)
+    _, chunked = rollout.rollout_chunked(params, st, 1.0, cfg, 4, device="cpu")
+    _, scanned = rollout.rollout(params, st, 1.0, cfg, 2, continuous=True, device="cpu")
+    assert chunked.reward.shape == (4, 8) and scanned.reward.shape == (2, 8)
     assert resolve_device("cpu").type == "cpu"
 
 
