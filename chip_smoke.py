@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two self-play paths and its training loop on one
-CUDA card and check them.
+"""Drive the PyTorch port's two self-play paths, its training loop, its
+evaluation and play CLIs and the row-take probe on one CUDA card and check
+them.
 
 Run from the repository root, on a machine with one NVIDIA H100:
 
@@ -18,7 +19,11 @@ value batches run the fused board -> value kernel. Both in continuous mode,
 td_mode "side0", with the in-repo checkpoint's weights. Paths 3-5 train
 through the CLI's own entry point, ``apps.train.main``, from random weights
 made from a seed: continuous 1-ply, continuous 2-ply and sync with one Adam
-step per episode. Phases, in order; any failure exits non-zero:
+step per episode. Path 6 is the row-take probe (``scripts.probe_take``), the
+port of the TPU probe kernels P1-P3. Path 7 is the evaluate CLI's matches
+(``eval.arena.play_match`` as replayed CUDA graphs at ``Config()``, 1024
+games, 400 steps), whose merged legal moves run nd_tail at K = 576; path 8
+the play CLI at batch 1. Phases, in order; any failure exits non-zero:
 
 1. device: torch's view of the card and nvidia-smi's name and power limit;
 2. build: one nvcc per kernel source, started together (seconds,
@@ -89,6 +94,30 @@ step per episode. Phases, in order; any failure exits non-zero:
     share (torch.profiler), the graph's device ms a step with its replays
     queued ahead of the card, and its launch gate;
 
+23. take_rows (the probe kernels P1-P3 of
+    ``scripts/probe_pallas_batched_dot.py`` as one CUDA gather) bit-equal to
+    ``take_rows_plain`` and, on in-range indices, to ``torch.gather``: at
+    the probe's shape (N = 4096, K = W = 128), N = 4099, the actor's tier-1
+    take (K = 96 from W = 448, int64) and that shape with indices outside
+    [0, W); kernel, torch.gather and plain ms, and the bound; then the probe
+    entry point (``scripts.probe_take``) in-process and as subprocesses in
+    the modes batched (P1), fused (P2) and bdiag8 (P3): each exact, exit 0;
+24. arena, card vs CPU: greedy vs greedy and random vs greedy at B = 32,
+    64 steps, small widths, dice and noise from one numpy stream: the
+    graphed match on the card gives the CPU's MatchResult;
+25. graphed vs eager match at the evaluate CLI's defaults (``Config()``,
+    B = 1024, 400 steps, chunk 16, the checkpoint's weights): greedy vs
+    random and greedy vs greedy bit-equal to the eager step loop, checkers
+    conserved, one nd_tail launch (K = 576) a match step counted by replay;
+    ms a match step, games/s, idle share, capture seconds; nd_tail at
+    K = 576 against its plain version, timed;
+26. the evaluate CLI (``apps.evaluate.main``) on the card: vs random and
+    vs greedy with no flag, vs 2-ply at the defaults with the checkpoint,
+    and a 2-ply agent at 256 games; JAX's summary keys, finished > 0,
+    nd_tail launches gated;
+27. the play CLI with ``--engine torch`` on the card and ``--engine
+    oracle`` in subprocesses, moves piped in: exit 0, the same agent moves;
+
 then the kernels line (launches summed over every path's timed run) and the
 result line. Phases 4, 7, 10 and 13 time the eager step; the training runs
 (16-18) go through the graphed rollouts, as ``apps.train`` does.
@@ -101,6 +130,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import subprocess
@@ -135,6 +165,19 @@ KERNEL_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/ops/csrc/fused_value.cu"
 KERNEL_REPLACES = "mlp_ppo_2ply_multi_tpu/ops/fused_value.py:93"
 ND_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/experimental/csrc/nd_tail.cu"
 ND_REPLACES = "mlp_ppo_2ply_multi_tpu/experimental/nd_tail.py:137"
+TAKE_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/ops/csrc/take_rows.cu"
+TAKE_REPLACES = ("scripts/probe_pallas_batched_dot.py:55 (P1 take_pallas), "
+                 "scripts/probe_pallas_batched_dot.py:86 (P2 take_pallas_fused), "
+                 "scripts/probe_pallas_batched_dot.py:214 (P3 take_bdiag)")
+# the probe modes run on the probe's main path: one JAX mode of each of P1,
+# P2 and P3
+PROBE_MODES = ("batched", "fused", "bdiag8")
+B_ARENA_SMALL = 32  # phase 24: card vs CPU at the small widths
+ARENA_SMALL_STEPS = 64
+B_EVAL = 1024  # the evaluate CLI's --games
+EVAL_STEPS = 400  # and its --max-steps
+EVAL_CHUNK = 16
+B_EVAL_TWOPLY_AGENT = 256  # --agent-policy twoply, cut to bound the run's time
 B_TWOPLY = 1024
 B_TWOPLY_SMALL = 32
 WARMUP_2PLY = 2
@@ -176,11 +219,17 @@ def _port():
     from mlp_ppo_2ply_multi_tpu_torch.model import value_net
     from mlp_ppo_2ply_multi_tpu_torch.ops import fused_value
     from mlp_ppo_2ply_multi_tpu_torch.twoply import expectimax
+    from mlp_ppo_2ply_multi_tpu_torch.apps import evaluate
+    from mlp_ppo_2ply_multi_tpu_torch.core import config as config_mod
+    from mlp_ppo_2ply_multi_tpu_torch.eval import arena
+    from mlp_ppo_2ply_multi_tpu_torch.ops import take_rows
+    from mlp_ppo_2ply_multi_tpu_torch.scripts import probe_take
 
     return dict(
         rollout=rollout, Config=Config, board=board,
         movegen2=movegen2, vec_env=vec_env, value_net=value_net,
         fv=fused_value, nd=nd_tail, X=expectimax, td=td, train=train, ckpt=checkpoint,
+        take=take_rows, probe=probe_take, arena=arena, evaluate=evaluate, cfg=config_mod,
     )
 
 
@@ -303,11 +352,11 @@ def sass_mma_count(so, kernel):
 def phase_build(P):
     """One nvcc per kernel source, all started together."""
     fv, nd = P["fv"], P["nd"]
-    kernels = (fv.KERNEL, nd.KERNEL)
+    kernels = (fv.KERNEL, nd.KERNEL, P["take"].KERNEL)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.load(), kernels))
-    log(f"[2 build] both kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"[2 build] {len(kernels)} kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for k in kernels:
         info = k.build_info
         log(f"[2 build] {info.get('path')} cached={info.get('cached')} "
@@ -1439,6 +1488,365 @@ def phase_graph_times(P, dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the row take (P1-P3), the arena and the evaluate and play CLIs
+# ---------------------------------------------------------------------------
+
+
+def take_bound(boards, idx):
+    """Least time for take_rows on these inputs, bound by bytes (it does no
+    arithmetic beyond addresses): the distinct in-range source rows each
+    game's indices use, read once, the indices, and N x K x C bytes
+    written, over HBM bandwidth."""
+    n, w, c = boards.shape
+    k = idx.shape[1]
+    ok = (idx >= 0) & (idx < w)
+    used = torch.zeros((n, w), dtype=torch.int32, device=boards.device)
+    used.scatter_reduce_(1, idx.long().clamp(0, w - 1), ok.int(), reduce="amax")
+    rows = int(used.sum())
+    nbytes = rows * c + idx.numel() * idx.element_size() + n * k * c
+    return dict(rows_used_per_game=rows / n, bytes=nbytes,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
+def take_cases(P, dev):
+    """Phase 23's inputs: the probe's own (N = 4096, K = W = 128), an N that
+    is a multiple of no block, the actor's tier-1 take shape (K = 96 from
+    W = 448, int64 indices as ``board_take`` has them), and that shape with
+    indices outside [0, W)."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def rand(n, w, k, dtype, outside=0):
+        boards = torch.randint(0, 5, (n, w, 52), generator=gen, device=dev, dtype=torch.int8)
+        idx = torch.randint(0, w, (n, k), generator=gen, device=dev, dtype=dtype)
+        if outside:
+            bad = torch.tensor([-1, w, w + 5, -(2**31)], device=dev, dtype=dtype)
+            pos = torch.randint(0, idx.numel(), (outside,), generator=gen, device=dev)
+            idx.view(-1)[pos] = bad[torch.arange(outside, device=dev) % 4]
+        return boards, idx
+
+    return [
+        ("probe", *P["probe"].inputs(4096, dev)),
+        ("n4099", *rand(4099, 128, 128, torch.int32)),
+        ("actor_tier1", *rand(4096, 448, 96, torch.int64)),
+        ("outside", *rand(4096, 448, 96, torch.int32, outside=4096)),
+    ]
+
+
+def phase_take(P, dev, card):
+    """23: take_rows bit-equal to its plain version (and to torch.gather on
+    in-range indices) at every case's shape, timed against both; then the
+    probe entry point, in-process (its launches counted from 0) and as
+    subprocesses, one mode of each of P1, P2 and P3."""
+    T, probe = P["take"], P["probe"]
+    rows = {}
+    for name, boards, idx in take_cases(P, dev):
+        n, w, c = boards.shape
+        k = idx.shape[1]
+        got = T.take_rows(boards, idx)
+        want = T.take_rows_plain(boards, idx)
+        ok = (idx >= 0) & (idx < w)
+        gidx = idx.long().clamp(0, w - 1)[..., None].expand(n, k, c).contiguous()
+        lib = torch.gather(boards, 1, gidx)
+        _sync(dev)
+        err = int((got.int() - want.int()).abs().max())
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"[23 take] {name}: kernel differs from its plain version")
+        if not torch.equal(got[ok], lib[ok]) or bool(got[~ok].any()):
+            raise AssertionError(f"[23 take] {name}: kernel differs from torch.gather")
+        kern = functools.partial(T.launch_kernel, boards, idx)
+        gather = functools.partial(torch.gather, boards, 1, gidx)
+        # kernel, library, library, kernel: each queued behind the spin
+        k1, l1, l2, k2 = (_queued_ms_per_round([f], dev, rounds=20)
+                          for f in (kern, gather, gather, kern))
+        plain_ms = _time_ms(lambda: T.take_rows_plain(boards, idx), dev, 10)
+        row = dict(case=name, n=n, w=w, k=k, idx_dtype=str(idx.dtype).split(".")[-1],
+                   outside=int((~ok).sum()), max_abs_err=err, ms=(k1 + k2) / 2,
+                   library_ms=(l1 + l2) / 2, plain_ms=plain_ms, runs_ms=[k1, l1, l2, k2],
+                   **take_bound(boards, idx))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        log(f"[23 take] {json.dumps(row)} {card}")
+        rows[name] = row
+    del boards, idx, got, want, lib, gidx
+
+    T.KERNEL.launches = 0
+    for mode in PROBE_MODES:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = probe.main([mode])
+        out = buf.getvalue().splitlines()
+        log(f"[23 take] probe_take.main([{mode!r}]) -> {rc}: {out} {card}")
+        if rc != 0 or out[:1] != ["exact: True"]:
+            raise AssertionError(f"[23 take] the probe's {mode} mode was not exact")
+    launches = T.KERNEL.launches
+    _gate(launches, len(PROBE_MODES) * (1 + probe.ITERS), "probe_take take_rows")
+
+    cmd = [sys.executable, "-m", "mlp_ppo_2ply_multi_tpu_torch.scripts.probe_take"]
+    procs = [subprocess.Popen(cmd + [m], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for m in PROBE_MODES]
+    try:
+        for mode, proc in zip(PROBE_MODES, procs):
+            out, err = proc.communicate(timeout=300)
+            log(f"[23 take] python -m ...scripts.probe_take {mode} -> rc {proc.returncode}: "
+                f"{out.strip().splitlines()}")
+            if proc.returncode != 0 or not out.startswith("exact: True"):
+                raise AssertionError(f"[23 take] probe_take {mode} subprocess failed:\n{err}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return rows, launches
+
+
+def eval_config(P, movegen=None):
+    """The evaluate CLI's config (``make_cfg``: ``Config()`` with the exact
+    2-ply scorer) in td_mode "side0", the one the checkpoint was trained in."""
+    C = P["cfg"]
+    cfg = C.Config(twoply=C.TwoPlyConfig(enabled=True), train=C.TrainConfig(td_mode="side0"))
+    return cfg if movegen is None else cfg.replace(movegen=movegen)
+
+
+def numpy_match(P, cfg, batch, steps, seed):
+    """A start state and ``steps`` MatchNoise from one numpy stream (CPU
+    tensors): opening rolls, then per step side A's and side B's Gumbel
+    noise and the next dice."""
+    import numpy as np
+
+    A, VE = P["arena"], P["vec_env"]
+    rng = np.random.default_rng(seed)
+    pairs = torch.from_numpy(VE._ND_PAIRS)
+    start = VE.reset_from_rolls(pairs[torch.from_numpy(rng.integers(0, 30, batch))],
+                                pairs[torch.from_numpy(rng.integers(0, 30, batch))])
+    w = A.noise_width(cfg)
+    noise = []
+    for _ in range(steps):
+        u = np.maximum(rng.random((2, batch, w), dtype=np.float32), np.finfo(np.float32).tiny)
+        g = torch.from_numpy(-np.log(-np.log(u)))
+        dice = torch.from_numpy(rng.integers(1, 7, (batch, 2)).astype(np.int32))
+        noise.append(A.MatchNoise(g[0], g[1], dice))
+    return start, noise
+
+
+def phase_arena_card_vs_cpu(P, dev, card):
+    """24: greedy vs greedy and random vs greedy at B = 32, 64 steps, the
+    small widths of the CPU tests, from one numpy stream of dice and noise:
+    the graphed match on the card gives the CPU's MatchResult."""
+    A, C = P["arena"], P["cfg"]
+    small = C.MoveGenConfig(w1=16, w2=32, w3=48, w4=64, a_max=64, nd_dedup_k=48,
+                            dd_subbatch_div=3)
+    cfg = eval_config(P, small)
+    start, noise = numpy_match(P, cfg, B_ARENA_SMALL, ARENA_SMALL_STEPS, 24)
+    params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    out = {}
+    for name, pa, pb in (("greedy_vs_greedy", A.greedy_policy(cfg), A.greedy_policy(cfg)),
+                         ("random_vs_greedy", A.random_policy(cfg), A.greedy_policy(cfg))):
+        res = {}
+        for where, p in (("card", params), ("cpu", cpu_params)):
+            d = dev if where == "card" else torch.device("cpu")
+            res[where] = A.play_match(p, p, pa, pb, None, cfg, B_ARENA_SMALL, ARENA_SMALL_STEPS,
+                                      device=d, noise=noise,
+                                      start=P["movegen2"]._tmap(lambda t: t.to(d), start))
+        _sync(dev)
+        for f in ("winner", "win_type", "steps"):
+            if not torch.equal(getattr(res["card"], f).cpu(), getattr(res["cpu"], f)):
+                raise AssertionError(f"[24 arena card vs cpu] {name}: {f} differs")
+        out[name] = A.summarize(res["card"])
+        log(f"[24 arena card vs cpu] {name}, B={B_ARENA_SMALL}, {ARENA_SMALL_STEPS} steps: "
+            f"MatchResult equal on the card and the CPU: {json.dumps(out[name])} {card}")
+    A.clear_graphs()
+    return out
+
+
+def eval_nd_inputs(P, params, cfg, dev):
+    """The nd_tail inputs of one eager match step at the evaluate CLI's
+    defaults: the merged legal moves' single-pass tail, K = 576."""
+    A, nd, VE = P["arena"], P["nd"], P["vec_env"]
+    seen = []
+    real = nd.nd_tail_fused
+
+    def keep(*args):
+        seen.append(args)
+        return real(*args)
+
+    gen = torch.Generator(device=dev).manual_seed(250)
+    m = A._Match(VE.reset(B_EVAL, gen, device=dev),
+                 torch.full((B_EVAL,), -1, dtype=torch.int32, device=dev))
+    pol = A.greedy_policy(cfg)
+    with _Swap(nd, "nd_tail_fused", keep):
+        A.match_step(params, params, pol, pol, cfg, m, A.draw_match_noise(B_EVAL, cfg, gen, dev))
+    _sync(dev)
+    return seen
+
+
+def phase_eval_graph_vs_eager(P, dev, card):
+    """25: matches at the evaluate CLI's defaults (``Config()``, B = 1024,
+    400 steps, chunk 16) with the checkpoint's weights, greedy vs random and
+    greedy vs greedy: the graphed match bit-equal to the eager step loop from
+    the same generator seed (winners, win types, steps, final boards),
+    checkers conserved, one nd_tail launch a match step (the merged legal
+    moves' single-pass tail at K = 576) counted by replay; then ms a match
+    step, games/s, idle share and capture seconds; and nd_tail at K = 576
+    against its plain version, timed."""
+    A, VE, nd, Bd = P["arena"], P["vec_env"], P["nd"], P["board"]
+    cfg = eval_config(P)
+    params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
+    out = {"launches": 0}
+    for i, (name, pa, pb) in enumerate((
+            ("greedy_vs_random", A.greedy_policy(cfg), A.random_policy(cfg)),
+            ("greedy_vs_greedy", A.greedy_policy(cfg), A.greedy_policy(cfg)))):
+        A.clear_graphs()
+        seed = 25 + 10 * i
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        m = A._Match(VE.reset(B_EVAL, gen, device=dev),
+                     torch.full((B_EVAL,), -1, dtype=torch.int32, device=dev))
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(EVAL_STEPS):
+            m = A.match_step(params, params, pa, pb, cfg, m,
+                             A.draw_match_noise(B_EVAL, cfg, gen, dev))
+        _sync(dev)
+        eager_ms = (time.perf_counter() - t0) * 1e3 / EVAL_STEPS
+
+        run = lambda s: A.play_match(params, params, pa, pb,
+                                     torch.Generator(device=dev).manual_seed(s), cfg,
+                                     B_EVAL, EVAL_STEPS, device=dev, chunk=EVAL_CHUNK)
+        nd.KERNEL.launches = 0
+        res = run(seed)  # the first chunk eager, the capture, then replays
+        _sync(dev)
+        launches = nd.KERNEL.launches
+        _gate(launches, EVAL_STEPS, f"graphed match {name} nd_tail")
+        g = A.GRAPHS[next(reversed(A.GRAPHS))] if A.GRAPHS else None
+        if g is None and dev.type == "cuda":
+            raise AssertionError(f"[25 eval graph vs eager] {name}: no graph was captured")
+        final = m.state.board if g is None else g.match.state.board
+        for f, a, b in (("winner", res.winner, m.winner), ("win_type", res.win_type, m.state.win_type),
+                        ("steps", res.steps, m.state.step_count),
+                        ("final boards", final.data, m.state.board.data)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[25 eval graph vs eager] {name}: {f} differ")
+        if not bool(Bd.checker_conservation_ok(final).all()):
+            raise AssertionError(f"[25 eval graph vs eager] {name}: checkers not conserved")
+
+        nd.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        res2 = run(seed + 1)  # replays only
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        _gate(nd.KERNEL.launches, EVAL_STEPS, f"replayed match {name} nd_tail")
+        launches += nd.KERNEL.launches
+        busy = _graph_busy(lambda: run(seed + 2), EVAL_STEPS, dev)
+        graph_ms = (_queued_ms_per_round([g.graph.replay], dev, rounds=2) / EVAL_CHUNK
+                    if g is not None else None)
+        ms = wall * 1e3 / EVAL_STEPS
+        row = {**(g.info if g is not None else {}), **dict(
+            batch=B_EVAL, steps=EVAL_STEPS, chunk=EVAL_CHUNK, ms_per_step=ms,
+            games_per_s=B_EVAL / wall, eager_ms_per_step=eager_ms,
+            device_busy_ms_per_step=busy, idle_share=None if busy is None else 1 - busy / ms,
+            graph_replay_device_ms_per_step=graph_ms, nd_tail_launches=launches,
+            summary=A.summarize(res), summary_replayed=A.summarize(res2), card=card)}
+        log(f"[25 eval graph vs eager] {name}: graphed and eager bit-equal, checkers "
+            f"conserved: {json.dumps(row)}")
+        out[name] = row
+        out["launches"] += launches
+    A.clear_graphs()
+
+    seen = eval_nd_inputs(P, params, cfg, dev)
+    if [(a[0].shape[0], a[7], a[8]) for a in seen] != [(B_EVAL, 576, 512)]:
+        raise AssertionError(f"[25] unexpected eval nd_tail calls {[(a[0].shape, a[7:]) for a in seen]}")
+    args = seen[0]
+    K, a_max = args[7], args[8]
+    got, want = nd.nd_tail_fused(*args), nd.nd_tail_plain(*args)
+    _sync(dev)
+    keep = want[1]
+    if not (torch.equal(got[1], want[1]) and all(torch.equal(x, y) for x, y in zip(got[2:], want[2:]))
+            and torch.equal(got[0][keep], want[0][keep])):
+        raise AssertionError("[25] nd_tail at K = 576 differs from its plain version")
+    ops = nd.kernel_operands(*args[:7], K)
+    kern = functools.partial(nd.launch_kernel, *ops, K, a_max)
+    k1 = _queued_ms_per_round([kern], dev)
+    plain_ms = _time_ms(lambda: nd.nd_tail_plain(*args), dev, 5)
+    k2 = _queued_ms_per_round([kern], dev)
+    bound = nd_tail_bound(args[0], K)
+    out["nd_tail_k576"] = dict(ms_per_launch=(k1 + k2) / 2, runs_ms=[k1, k2], plain_ms=plain_ms,
+                               **bound, bound_share=bound["bound_ms"] / ((k1 + k2) / 2))
+    log(f"[25 eval graph vs eager] nd_tail at K = 576 on the eval path, bit-equal to its plain "
+        f"version: {json.dumps(out['nd_tail_k576'])} {card}")
+    return out
+
+
+EVAL_RUNS = (
+    ("random", ["--opponent", "random"]),
+    ("greedy", ["--opponent", "greedy"]),
+    ("twoply", ["--opponent", "twoply", "--checkpoint", str(CKPT), "--td-mode", "side0"]),
+    ("twoply_agent", ["--agent-policy", "twoply", "--games", str(B_EVAL_TWOPLY_AGENT),
+                      "--checkpoint", str(CKPT), "--td-mode", "side0"]),
+)
+SUMMARY_KEYS = {"games", "finished", "win_rate_a", "win_rate_b", "unfinished", "gammons",
+                "backgammons"}
+
+
+def phase_evaluate_cli(P, dev, card):
+    """26: ``apps.evaluate.main`` on the card at its defaults (Config(),
+    1024 games, 400 steps): vs random and vs greedy with no flag at all (an
+    untrained net), vs 2-ply (the checkpoint, td_mode side0), and a 2-ply
+    agent at 256 games; each prints JAX's summary keys with finished > 0, and runs
+    nd_tail once a match step plus 15 times a step for each 2-ply side (its
+    15 non-double reply rolls)."""
+    A, nd = P["arena"], P["nd"]
+    out = {"launches": 0}
+    for name, argv in EVAL_RUNS:
+        A.clear_graphs()
+        buf = io.StringIO()
+        _sync(dev)
+        nd.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = P["evaluate"].main(argv)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = nd.KERNEL.launches
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        games = B_EVAL_TWOPLY_AGENT if "--games" in argv else B_EVAL
+        _gate(launches, EVAL_STEPS * (1 + 15 * name.startswith("twoply")),
+              f"evaluate {name} nd_tail")
+        row = dict(argv=argv, rc=rc, wall_s=wall, ms_per_step=wall * 1e3 / EVAL_STEPS,
+                   nd_tail_launches=launches, summary=summary, card=card)
+        log(f"[26 evaluate cli] {json.dumps(row)}")
+        if rc != 0 or set(summary) != SUMMARY_KEYS or summary["games"] != games \
+                or summary["finished"] <= 0:
+            raise AssertionError(f"[26 evaluate cli] {name}: {rc} {summary}")
+        out[name] = row
+        out["launches"] += launches
+    A.clear_graphs()
+    return out
+
+
+def phase_play_cli(card):
+    """27: ``apps.play`` with --engine torch on the card (and --engine
+    oracle) in a subprocess, the human's moves piped in (always move 0):
+    both exit 0 at the game's end, and the agent plays the same moves."""
+    moves = {}
+    for engine in ("torch", "oracle"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mlp_ppo_2ply_multi_tpu_torch.apps.play", "--engine", engine,
+             "--seed", "7", "--show-values"],
+            input="0\n" * 400, capture_output=True, text=True, timeout=600, cwd=ROOT)
+        lines = proc.stdout.splitlines()
+        moves[engine] = [x for x in lines if x.startswith("agent plays")]
+        log(f"[27 play cli] --engine {engine}: rc {proc.returncode}, "
+            f"{time.perf_counter() - t0:.1f} s, {len(moves[engine])} agent moves, "
+            f"{lines[-1] if lines else ''!r} {card}")
+        if proc.returncode != 0 or not any(x.startswith("game over") for x in lines):
+            raise AssertionError(f"[27 play cli] --engine {engine} failed:\n{proc.stderr[-2000:]}")
+    if len(moves["torch"]) < 5 or moves["torch"] != moves["oracle"]:
+        raise AssertionError("[27 play cli] the torch engine's agent moves differ from the oracle's")
+    return len(moves["torch"])
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
@@ -1516,6 +1924,15 @@ def main() -> int:
                 + sum(r["launches"]["fused_value"] for r in gt.values()))
     graph_nd = g2["launches"]["nd_tail"] + sum(r["launches"]["nd_tail"] for r in gt.values())
 
+    take_rows, take_launches = phase_take(P, dev, card)
+    phase_arena_card_vs_cpu(P, dev, card)
+    ev = phase_eval_graph_vs_eager(P, dev, card)
+    cli = phase_evaluate_cli(P, dev, card)
+    phase_play_cli(card)
+    eval_nd = ev["launches"] + cli["launches"]
+    nd576 = ev["nd_tail_k576"]
+    probe = take_rows["probe"]
+
     kernels = [
         {
             "name": "fused_value",
@@ -1546,7 +1963,8 @@ def main() -> int:
             "route": "cuda",
             "source": ND_SOURCE,
             "replaces": ND_REPLACES,
-            "launches": stats2["nd_tail_launches"] + train2["launches"]["nd_tail"] + graph_nd,
+            "launches": stats2["nd_tail_launches"] + train2["launches"]["nd_tail"] + graph_nd
+            + eval_nd,
             "max_abs_err": nd_err,
             # one 2-ply step's 15 launches at [4096 rows, K = 96], summed
             "ms": nd_step["ms"],
@@ -1558,7 +1976,31 @@ def main() -> int:
             "wrapper_ms": nd_step["wrapper_ms"],
             "paths": {"2ply": {"launches": stats2["nd_tail_launches"]},
                       "train_2ply": {"launches": train2["launches"]["nd_tail"]},
-                      "graphs": {"launches": graph_nd}},
+                      "graphs": {"launches": graph_nd},
+                      # the graphed matches of phase 25 and the evaluate CLI
+                      # runs of phase 26; one launch at [1024, K = 576] timed
+                      "eval": {"launches": eval_nd, "K": 576,
+                               "ms_per_launch": nd576["ms_per_launch"],
+                               "plain_ms": nd576["plain_ms"], "bound_ms": nd576["bound_ms"],
+                               "bound_by": nd576["bound_by"]}},
+            "ok": True,
+        },
+        {
+            "name": "take_rows",
+            "route": "cuda",
+            "source": TAKE_SOURCE,
+            "replaces": TAKE_REPLACES,
+            # the probe entry point's run (phase 23), counted from 0
+            "launches": take_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in take_rows.values()),
+            # one launch at the probe's shape, [4096, K = 128] from W = 128
+            "ms": probe["ms"],
+            "plain_ms": probe["plain_ms"],
+            "bound_ms": probe["bound_ms"],
+            "bound_by": probe["bound_by"],
+            "library_ms": probe["library_ms"],  # torch.gather, which the port never calls here
+            "paths": {"probe": {"launches": take_launches, "modes": list(PROBE_MODES)}},
+            "shapes": take_rows,
             "ok": True,
         },
     ]

@@ -53,7 +53,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import OrderedDict
-from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -500,6 +500,43 @@ def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
     return _STREAMS[str(dev)]
 
 
+def capture_graph(body: Callable[[], None], dev: torch.device, what: str
+                  ) -> Tuple[torch.cuda.CUDAGraph, GraphLaunches, Dict[str, object]]:
+    """``body`` captured as one CUDA graph on the device's capture stream,
+    with every synchronising op made to raise and fused_value's operands
+    packed once (``packing_once_per_capture``). Run a warm-up of the same
+    work on that stream first. Returns (graph, the kernel launches it holds,
+    info: the capture + instantiate seconds, the bytes its memory pool
+    holds and the launches a replay makes by kernel). A failed capture
+    raises, naming ``what``."""
+    stream = _capture_stream(dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_stats(dev)
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    launches = GraphLaunches()
+    try:
+        with launches, packing_once_per_capture(), torch.cuda.graph(graph, stream=stream):
+            with _syncs_raise():
+                body()
+    except RuntimeError as e:
+        if isinstance(e, NotImplementedError):
+            raise
+        raise RuntimeError(f"capturing {what} as a CUDA graph failed: {e}") from e
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    mem1 = torch.cuda.memory_stats(dev)
+    delta = lambda k: mem1.get(k, 0) - mem0.get(k, 0)
+    return graph, launches, dict(
+        capture_s=seconds,
+        pool_reserved_bytes=delta("reserved_bytes.all.current"),
+        pool_allocated_bytes=delta("allocated_bytes.all.current"),
+        launches_per_replay={k.src.stem: n for k, n in launches.per_replay.items()},
+    )
+
+
 class ChunkGraph:
     """``chunk`` rollout steps captured as one CUDA graph.
 
@@ -524,35 +561,15 @@ class ChunkGraph:
             self.state = _tmap(torch.clone, state)
             self.noise = [_tmap(torch.clone, nz) for nz in noises]
         self.warmup: Optional[Transition] = traj
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        mem0 = torch.cuda.memory_stats(dev)
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        self.launches = GraphLaunches()
-        try:
-            with self.launches, packing_once_per_capture(), \
-                    torch.cuda.graph(self.graph, stream=stream):
-                with _syncs_raise():
-                    st, self.traj = _run_chunk(
-                        params, self.state, self.temp, cfg, continuous, self.noise, dev)
-                    _copy_into(self.state, st)
-        except RuntimeError as e:
-            if isinstance(e, NotImplementedError):
-                raise
-            raise RuntimeError(
-                f"capturing {chunk} rollout steps as a CUDA graph failed: {e}") from e
-        torch.cuda.synchronize(dev)
-        seconds = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        mem1 = torch.cuda.memory_stats(dev)
-        delta = lambda k: mem1.get(k, 0) - mem0.get(k, 0)
-        self.info = dict(
-            chunk=chunk, batch=state.player.shape[0], capture_s=seconds,
-            pool_reserved_bytes=delta("reserved_bytes.all.current"),
-            pool_allocated_bytes=delta("allocated_bytes.all.current"),
-            launches_per_replay={k.src.stem: n for k, n in self.launches.per_replay.items()},
-        )
+
+        def body() -> None:
+            st, self.traj = _run_chunk(
+                params, self.state, self.temp, cfg, continuous, self.noise, dev)
+            _copy_into(self.state, st)
+
+        self.graph, self.launches, info = capture_graph(
+            body, dev, f"{chunk} rollout steps")
+        self.info = dict(chunk=chunk, batch=state.player.shape[0], **info)
 
     def replay(self, noises: Sequence[Noise], state=None, temperature=None) -> None:
         """One chunk on the current stream, from ``state`` and at

@@ -233,8 +233,7 @@ def _parser() -> argparse.ArgumentParser:
                     help="the JAX package's fused mesh train step: not ported "
                          "(ROADMAP A15)")
     ap.add_argument("--two-ply", action="store_true",
-                    help="self-play with the 2-ply expectimax rerank policy "
-                         "(on a card only with --production)")
+                    help="self-play with the 2-ply expectimax rerank policy")
     ap.add_argument("--remote-dir", default=None,
                     help="fsspec mirror: not ported (ROADMAP A15)")
     ap.add_argument("--max-timesteps", type=int, default=None,

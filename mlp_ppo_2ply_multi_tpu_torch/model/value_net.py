@@ -72,6 +72,15 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return (h @ w2 + params["b2"].float()).squeeze(-1)
 
 
+def forward_np(params, x: np.ndarray) -> np.ndarray:
+    """Pure-numpy f32 forward for host-side single-game use (the play CLI):
+    the JAX package's ``forward_np``. ``params`` hold numpy arrays (or CPU
+    tensors); ``x`` is f32 [..., 198]."""
+    p = {k: np.asarray(v) for k, v in params.items()}
+    h = 1.0 / (1.0 + np.exp(-(x @ p["w1"] + p["b1"])))
+    return (h @ p["w2"] + p["b2"])[..., 0]
+
+
 def params_from_jax(params: Dict[str, np.ndarray], device: DeviceLike = None) -> Params:
     """The JAX pytree (numpy arrays w1 [198,h], b1 [h], w2 [h,1], b2 [1]) as
     the port's parameters on ``device`` (default ``cuda``): the same numbers

@@ -84,15 +84,11 @@ def topk_small(v: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _values(params, boards: Board, flag, cfg: Config) -> torch.Tensor:
     """Candidate values through ``fused_value`` when the actor has the fused
-    kernel, else encode + forward (the f32 parity path, CPU only: on a card
-    the values go through the kernel)."""
+    kernel, else encode + forward in ``cfg.model.dtype`` on the boards'
+    device (JAX's ``oriented_values`` path, which no Pallas kernel serves:
+    the config picks the path, as in JAX)."""
     if cfg.model.fused_actor_kernel:
         return fused_value(boards.data, flag, params)
-    if boards.data.device.type != "cpu":
-        raise NotImplementedError(
-            "on a card the 2-ply scorer values boards through the fused_value "
-            "kernel: set model.fused_actor_kernel"
-        )
     return value_net.forward(params, encode_board(boards, flag), cfg.model)
 
 

@@ -42,7 +42,8 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
 def test_isolation_covers_every_port_module():
     """The checks above walk the whole package and chip_smoke.py: the 2-ply
     modules, both kernels' wrappers, the learner, checkpoints, metrics and
-    the training CLI are among them."""
+    the training CLI, the row-take kernel and its probe, the oracle copies,
+    the arena and the evaluate and play CLIs are among them."""
     for m in (
         "mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax",
         "mlp_ppo_2ply_multi_tpu_torch.experimental.nd_tail",
@@ -54,6 +55,14 @@ def test_isolation_covers_every_port_module():
         "mlp_ppo_2ply_multi_tpu_torch.io.checkpoint",
         "mlp_ppo_2ply_multi_tpu_torch.io.metrics",
         "mlp_ppo_2ply_multi_tpu_torch.apps.train",
+        "mlp_ppo_2ply_multi_tpu_torch.ops.take_rows",
+        "mlp_ppo_2ply_multi_tpu_torch.scripts.probe_take",
+        "mlp_ppo_2ply_multi_tpu_torch.oracle.rules",
+        "mlp_ppo_2ply_multi_tpu_torch.oracle.env",
+        "mlp_ppo_2ply_multi_tpu_torch.eval.arena",
+        "mlp_ppo_2ply_multi_tpu_torch.apps.render",
+        "mlp_ppo_2ply_multi_tpu_torch.apps.evaluate",
+        "mlp_ppo_2ply_multi_tpu_torch.apps.play",
     ):
         assert m in MODULES, m
     assert (ROOT / "chip_smoke.py").exists()
@@ -118,6 +127,29 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     _, scanned = rollout.rollout(params, st, 1.0, cfg, 2, continuous=True, device="cpu")
     assert chunked.reward.shape == (4, 8) and scanned.reward.shape == (2, 8)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_eval_entry_points_raise_without_cuda(monkeypatch):
+    """The evaluate and play CLIs, the arena and the take probe run on the
+    card unless asked for the CPU; without one they raise."""
+    from mlp_ppo_2ply_multi_tpu_torch.apps import evaluate, play
+    from mlp_ppo_2ply_multi_tpu_torch.core.config import Config
+    from mlp_ppo_2ply_multi_tpu_torch.eval import arena
+    from mlp_ppo_2ply_multi_tpu_torch.model import value_net
+    from mlp_ppo_2ply_multi_tpu_torch.scripts import probe_take
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config()
+    params = value_net.init_params(cfg.model, device="cpu")
+    pol = arena.random_policy(cfg)
+    for make in (
+        lambda: evaluate.main(["--games", "2", "--max-steps", "1"]),
+        lambda: probe_take.main(["gather", "4"]),
+        lambda: arena.play_match(params, params, pol, pol, None, cfg, 2, 1),
+        lambda: play.TorchEngine({k: v.numpy() for k, v in params.items()}),
+    ):
+        with pytest.raises(RuntimeError):
+            make()
 
 
 def test_rollout_step_refuses_state_on_another_device():

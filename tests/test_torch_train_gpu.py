@@ -109,11 +109,15 @@ def test_two_update_continuous_production_run(tmp_path):
 
 @pytest.mark.gpu
 def test_two_ply_without_production_raises_on_the_card(tmp_path):
-    """The exact (unfused) 2-ply scorer is the CPU parity path only."""
+    """It no longer raises: the exact (unfused) 2-ply scorer runs its f32
+    encode + forward on the card, as JAX runs it on any device, and the run
+    launches no fused_value."""
     _card()
-    with pytest.raises(NotImplementedError):
-        train.main([
-            "--two-ply", "--mode", "continuous", "--batch-games", "8",
-            "--steps-per-update", "1", "--updates", "1", "--device", "cuda",
-            "--checkpoint-dir", str(tmp_path / "ck"), "--metrics-dir", str(tmp_path / "runs"),
-        ])
+    before = fv.KERNEL.launches
+    rc = train.main([
+        "--two-ply", "--mode", "continuous", "--batch-games", "8",
+        "--steps-per-update", "1", "--updates", "1", "--device", "cuda",
+        "--checkpoint-dir", str(tmp_path / "ck"), "--metrics-dir", str(tmp_path / "runs"),
+    ])
+    assert rc == 0 and fv.KERNEL.launches == before
+    assert os.listdir(tmp_path / "ck")
