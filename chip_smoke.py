@@ -221,6 +221,7 @@ def _port():
     from mlp_ppo_2ply_multi_tpu_torch.twoply import expectimax
     from mlp_ppo_2ply_multi_tpu_torch.apps import evaluate
     from mlp_ppo_2ply_multi_tpu_torch.core import config as config_mod
+    from mlp_ppo_2ply_multi_tpu_torch.core import graphs, tree
     from mlp_ppo_2ply_multi_tpu_torch.eval import arena
     from mlp_ppo_2ply_multi_tpu_torch.ops import take_rows
     from mlp_ppo_2ply_multi_tpu_torch.scripts import probe_take
@@ -230,6 +231,7 @@ def _port():
         movegen2=movegen2, vec_env=vec_env, value_net=value_net,
         fv=fused_value, nd=nd_tail, X=expectimax, td=td, train=train, ckpt=checkpoint,
         take=take_rows, probe=probe_take, arena=arena, evaluate=evaluate, cfg=config_mod,
+        graphs=graphs, tree=tree,
     )
 
 
@@ -1418,15 +1420,27 @@ def phase_graph_vs_eager_2ply(P, dev, card):
 
 
 def _graph_busy(run, steps, dev):
-    """Device busy ms a step of ``run`` (a graphed rollout) under
-    torch.profiler; None where the trace holds no device time."""
+    """(device busy ms, host wall ms) a step of one call of ``run`` (a
+    graphed rollout or match) under torch.profiler: both from the same
+    run, so 1 - busy / wall is that run's idle share. Busy is None where
+    the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run()
         _sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
     busy_us = sum(_dev_t(e) for e in prof.key_averages())
-    return busy_us / steps / 1e3 if busy_us > 0 else None
+    return (busy_us / steps / 1e3 if busy_us > 0 else None), wall_ms / steps
+
+
+def _last_graph(P):
+    """The graph the last graphed call captured or replayed."""
+    G = P["graphs"].GRAPHS
+    if not G:
+        raise AssertionError("no CUDA graph was captured")
+    return G[next(reversed(G))]
 
 
 def phase_graph_times(P, dev, card):
@@ -1449,11 +1463,12 @@ def phase_graph_times(P, dev, card):
         temp = cfg.train.initial_temperature
         gen = torch.Generator(device=dev).manual_seed(14)
         for chunk in chunks:
-            R.clear_graphs()
+            P["graphs"].clear_graphs()
             state = VE.reset(batch, gen, device=dev)
             state, _ = R.rollout_chunked(params, state, temp, cfg, chunk, chunk=chunk,
                                          gen=gen, device=dev)  # captures
-            info = dict(next(reversed(R.GRAPHS.values())).info) if R.GRAPHS else {}
+            g = _last_graph(P)
+            info = dict(g.info)
             _sync(dev)
             fv.KERNEL.launches = nd.KERNEL.launches = 0
             t0 = time.perf_counter()
@@ -1464,19 +1479,18 @@ def phase_graph_times(P, dev, card):
             launches = {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches}
             _gate(launches, {k: n * steps for k, n in per_step.items()},
                   f"graphed {name} chunk {chunk}")
-            busy = _graph_busy(lambda: R.rollout_chunked(
+            busy, prof_ms = _graph_busy(lambda: R.rollout_chunked(
                 params, state, temp, cfg, steps, chunk=chunk, gen=gen, device=dev), steps, dev)
             # the graph alone, replays queued ahead of the card: the
             # step's device time with no host in the way
-            graph_ms = (_queued_ms_per_round([R.GRAPHS[next(reversed(R.GRAPHS))].graph.replay],
-                                             dev, rounds=max(2, 16 // chunk)) / chunk
-                        if R.GRAPHS else None)
+            graph_ms = _queued_ms_per_round([g.graph.replay], dev,
+                                            rounds=max(2, 16 // chunk)) / chunk
             ms = wall_ms / steps
             row = {**info, **dict(
                 batch=batch, steps=steps, chunk=chunk, ms_per_step=ms,
                 env_steps_per_s=batch * steps / (wall_ms / 1e3),
-                device_busy_ms_per_step=busy,
-                idle_share=None if busy is None else 1 - busy / ms,
+                device_busy_ms_per_step=busy, profiled_ms_per_step=prof_ms,
+                idle_share=None if busy is None else 1 - busy / prof_ms,
                 graph_replay_device_ms_per_step=graph_ms,
                 launches=launches, games_finished=int(traj.done.sum()),
                 values_finite=bool(torch.isfinite(traj.value).all()), card=card)}
@@ -1484,7 +1498,7 @@ def phase_graph_times(P, dev, card):
             if not row["values_finite"]:
                 raise AssertionError(f"graphed {name} values not finite")
             out[f"{name}_chunk{chunk}"] = row
-    R.clear_graphs()
+    P["graphs"].clear_graphs()
     return out
 
 
@@ -1546,8 +1560,11 @@ def phase_take(P, dev, card):
         got = T.take_rows(boards, idx)
         want = T.take_rows_plain(boards, idx)
         ok = (idx >= 0) & (idx < w)
-        gidx = idx.long().clamp(0, w - 1)[..., None].expand(n, k, c).contiguous()
-        lib = torch.gather(boards, 1, gidx)
+        # torch.gather as board_take calls it (an int64 index expanded
+        # along C, stride 0); it faults on an index outside [0, W), so it
+        # is given the clamped indices, the same ones where all are in range
+        lidx = idx.clamp(0, w - 1)
+        lib = probe.torch_gather(boards, lidx)
         _sync(dev)
         err = int((got.int() - want.int()).abs().max())
         if err or not torch.equal(got, want):
@@ -1555,7 +1572,7 @@ def phase_take(P, dev, card):
         if not torch.equal(got[ok], lib[ok]) or bool(got[~ok].any()):
             raise AssertionError(f"[23 take] {name}: kernel differs from torch.gather")
         kern = functools.partial(T.launch_kernel, boards, idx)
-        gather = functools.partial(torch.gather, boards, 1, gidx)
+        gather = functools.partial(probe.torch_gather, boards, lidx)
         # kernel, library, library, kernel: each queued behind the spin
         k1, l1, l2, k2 = (_queued_ms_per_round([f], dev, rounds=20)
                           for f in (kern, gather, gather, kern))
@@ -1567,7 +1584,7 @@ def phase_take(P, dev, card):
         row["bound_share"] = row["bound_ms"] / row["ms"]
         log(f"[23 take] {json.dumps(row)} {card}")
         rows[name] = row
-    del boards, idx, got, want, lib, gidx
+    del boards, idx, got, want, lib, lidx
 
     T.KERNEL.launches = 0
     for mode in PROBE_MODES:
@@ -1647,7 +1664,7 @@ def phase_arena_card_vs_cpu(P, dev, card):
             d = dev if where == "card" else torch.device("cpu")
             res[where] = A.play_match(p, p, pa, pb, None, cfg, B_ARENA_SMALL, ARENA_SMALL_STEPS,
                                       device=d, noise=noise,
-                                      start=P["movegen2"]._tmap(lambda t: t.to(d), start))
+                                      start=P["tree"].tmap(lambda t: t.to(d), start))
         _sync(dev)
         for f in ("winner", "win_type", "steps"):
             if not torch.equal(getattr(res["card"], f).cpu(), getattr(res["cpu"], f)):
@@ -1655,7 +1672,7 @@ def phase_arena_card_vs_cpu(P, dev, card):
         out[name] = A.summarize(res["card"])
         log(f"[24 arena card vs cpu] {name}, B={B_ARENA_SMALL}, {ARENA_SMALL_STEPS} steps: "
             f"MatchResult equal on the card and the CPU: {json.dumps(out[name])} {card}")
-    A.clear_graphs()
+    P["graphs"].clear_graphs()
     return out
 
 
@@ -1696,7 +1713,7 @@ def phase_eval_graph_vs_eager(P, dev, card):
     for i, (name, pa, pb) in enumerate((
             ("greedy_vs_random", A.greedy_policy(cfg), A.random_policy(cfg)),
             ("greedy_vs_greedy", A.greedy_policy(cfg), A.greedy_policy(cfg)))):
-        A.clear_graphs()
+        P["graphs"].clear_graphs()
         seed = 25 + 10 * i
         gen = torch.Generator(device=dev).manual_seed(seed)
         m = A._Match(VE.reset(B_EVAL, gen, device=dev),
@@ -1717,10 +1734,8 @@ def phase_eval_graph_vs_eager(P, dev, card):
         _sync(dev)
         launches = nd.KERNEL.launches
         _gate(launches, EVAL_STEPS, f"graphed match {name} nd_tail")
-        g = A.GRAPHS[next(reversed(A.GRAPHS))] if A.GRAPHS else None
-        if g is None and dev.type == "cuda":
-            raise AssertionError(f"[25 eval graph vs eager] {name}: no graph was captured")
-        final = m.state.board if g is None else g.match.state.board
+        g = _last_graph(P)
+        final = g.match.state.board
         for f, a, b in (("winner", res.winner, m.winner), ("win_type", res.win_type, m.state.win_type),
                         ("steps", res.steps, m.state.step_count),
                         ("final boards", final.data, m.state.board.data)):
@@ -1736,21 +1751,21 @@ def phase_eval_graph_vs_eager(P, dev, card):
         wall = time.perf_counter() - t0
         _gate(nd.KERNEL.launches, EVAL_STEPS, f"replayed match {name} nd_tail")
         launches += nd.KERNEL.launches
-        busy = _graph_busy(lambda: run(seed + 2), EVAL_STEPS, dev)
-        graph_ms = (_queued_ms_per_round([g.graph.replay], dev, rounds=2) / EVAL_CHUNK
-                    if g is not None else None)
+        busy, prof_ms = _graph_busy(lambda: run(seed + 2), EVAL_STEPS, dev)
+        graph_ms = _queued_ms_per_round([g.graph.replay], dev, rounds=2) / EVAL_CHUNK
         ms = wall * 1e3 / EVAL_STEPS
-        row = {**(g.info if g is not None else {}), **dict(
+        row = {**g.info, **dict(
             batch=B_EVAL, steps=EVAL_STEPS, chunk=EVAL_CHUNK, ms_per_step=ms,
             games_per_s=B_EVAL / wall, eager_ms_per_step=eager_ms,
-            device_busy_ms_per_step=busy, idle_share=None if busy is None else 1 - busy / ms,
+            device_busy_ms_per_step=busy, profiled_ms_per_step=prof_ms,
+            idle_share=None if busy is None else 1 - busy / prof_ms,
             graph_replay_device_ms_per_step=graph_ms, nd_tail_launches=launches,
             summary=A.summarize(res), summary_replayed=A.summarize(res2), card=card)}
         log(f"[25 eval graph vs eager] {name}: graphed and eager bit-equal, checkers "
             f"conserved: {json.dumps(row)}")
         out[name] = row
         out["launches"] += launches
-    A.clear_graphs()
+    P["graphs"].clear_graphs()
 
     seen = eval_nd_inputs(P, params, cfg, dev)
     if [(a[0].shape[0], a[7], a[8]) for a in seen] != [(B_EVAL, 576, 512)]:
@@ -1797,7 +1812,7 @@ def phase_evaluate_cli(P, dev, card):
     A, nd = P["arena"], P["nd"]
     out = {"launches": 0}
     for name, argv in EVAL_RUNS:
-        A.clear_graphs()
+        P["graphs"].clear_graphs()
         buf = io.StringIO()
         _sync(dev)
         nd.KERNEL.launches = 0
@@ -1819,7 +1834,7 @@ def phase_evaluate_cli(P, dev, card):
             raise AssertionError(f"[26 evaluate cli] {name}: {rc} {summary}")
         out[name] = row
         out["launches"] += launches
-    A.clear_graphs()
+    P["graphs"].clear_graphs()
     return out
 
 
@@ -1915,7 +1930,7 @@ def main() -> int:
     train_sync = phase_train_sync(P, dev, card)
     trains = {"train_1ply": train1, "train_2ply": train2, "train_sync": train_sync}
 
-    R.clear_graphs()
+    P["graphs"].clear_graphs()
     phase_no_sync(P, params, [("1-ply", cfg, B_PROD), ("2-ply", cfg2, B_TWOPLY)], dev, gen, card)
     g1 = phase_graph_vs_eager_1ply(P, dev, card)
     g2 = phase_graph_vs_eager_2ply(P, dev, card)

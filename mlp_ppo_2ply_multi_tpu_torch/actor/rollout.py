@@ -50,10 +50,7 @@ seed they give ``rollout_loop``'s trajectory.
 """
 from __future__ import annotations
 
-import contextlib
-import time
-from collections import OrderedDict
-from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -63,6 +60,14 @@ from mlp_ppo_2ply_multi_tpu_torch.core.device import (
     check_on,
     resolve_device,
 )
+from mlp_ppo_2ply_multi_tpu_torch.core.graphs import (
+    cached_graph,
+    capture_graph,
+    capture_stream,
+    params_signature,
+    syncs_raise,
+)
+from mlp_ppo_2ply_multi_tpu_torch.core.tree import copy_into, leaves, tmap
 from mlp_ppo_2ply_multi_tpu_torch.encoder.features import encode_board
 from mlp_ppo_2ply_multi_tpu_torch.engine import board as B
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
@@ -76,13 +81,11 @@ from mlp_ppo_2ply_multi_tpu_torch.engine.movegen2 import (
     SplitMoves,
     _select_set_bits,
     _take0,
-    _tmap,
     legal_moves_split,
 )
 from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
 from mlp_ppo_2ply_multi_tpu_torch.model import value_net
-from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import GraphLaunches
-from mlp_ppo_2ply_multi_tpu_torch.ops.fused_value import fused_value, packing_once_per_capture
+from mlp_ppo_2ply_multi_tpu_torch.ops.fused_value import fused_value
 from mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax import select_action_2ply
 
 _NEG = -1e9
@@ -455,18 +458,6 @@ def rollout_loop(
 Noise = Union[StepNoise, TwoPlyNoise]
 
 
-def _leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a tensor or a nested NamedTuple, in field order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [t for x in tree for t in _leaves(x)]
-
-
-def _copy_into(dst, src) -> None:
-    for d, s in zip(_leaves(dst), _leaves(src)):
-        d.copy_(s)
-
-
 def _run_chunk(params, state, temperature, cfg: Config, continuous: bool,
                noises: Sequence[Noise], dev: torch.device):
     """``len(noises)`` steps; returns the final state and their [chunk, B]
@@ -477,64 +468,6 @@ def _run_chunk(params, state, temperature, cfg: Config, continuous: bool,
                                 device=dev)
         ts.append(t)
     return state, Transition(*(torch.stack(xs) for xs in zip(*ts)))
-
-
-@contextlib.contextmanager
-def _syncs_raise() -> Iterator[None]:
-    """Make an op that synchronises the host with the card raise, naming
-    itself in the traceback, instead of breaking a capture."""
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
-
-
-_STREAMS: Dict[str, torch.cuda.Stream] = {}  # device -> capture stream
-
-
-def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
-    if str(dev) not in _STREAMS:
-        _STREAMS[str(dev)] = torch.cuda.Stream(dev)
-    return _STREAMS[str(dev)]
-
-
-def capture_graph(body: Callable[[], None], dev: torch.device, what: str
-                  ) -> Tuple[torch.cuda.CUDAGraph, GraphLaunches, Dict[str, object]]:
-    """``body`` captured as one CUDA graph on the device's capture stream,
-    with every synchronising op made to raise and fused_value's operands
-    packed once (``packing_once_per_capture``). Run a warm-up of the same
-    work on that stream first. Returns (graph, the kernel launches it holds,
-    info: the capture + instantiate seconds, the bytes its memory pool
-    holds and the launches a replay makes by kernel). A failed capture
-    raises, naming ``what``."""
-    stream = _capture_stream(dev)
-    torch.cuda.synchronize(dev)
-    torch.cuda.empty_cache()
-    mem0 = torch.cuda.memory_stats(dev)
-    t0 = time.perf_counter()
-    graph = torch.cuda.CUDAGraph()
-    launches = GraphLaunches()
-    try:
-        with launches, packing_once_per_capture(), torch.cuda.graph(graph, stream=stream):
-            with _syncs_raise():
-                body()
-    except RuntimeError as e:
-        if isinstance(e, NotImplementedError):
-            raise
-        raise RuntimeError(f"capturing {what} as a CUDA graph failed: {e}") from e
-    torch.cuda.synchronize(dev)
-    seconds = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    mem1 = torch.cuda.memory_stats(dev)
-    delta = lambda k: mem1.get(k, 0) - mem0.get(k, 0)
-    return graph, launches, dict(
-        capture_s=seconds,
-        pool_reserved_bytes=delta("reserved_bytes.all.current"),
-        pool_allocated_bytes=delta("allocated_bytes.all.current"),
-        launches_per_replay={k.src.stem: n for k, n in launches.per_replay.items()},
-    )
 
 
 class ChunkGraph:
@@ -552,20 +485,20 @@ class ChunkGraph:
 
     def __init__(self, params, state, temperature, cfg: Config, chunk: int,
                  continuous: bool, dev: torch.device, noises: Sequence[Noise]):
-        stream = _capture_stream(dev)
+        stream = capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             self.temp = _temperature(temperature, dev).clone()
-            with _syncs_raise():
+            with syncs_raise():
                 state, traj = _run_chunk(params, state, self.temp, cfg, continuous, noises, dev)
-            self.state = _tmap(torch.clone, state)
-            self.noise = [_tmap(torch.clone, nz) for nz in noises]
+            self.state = tmap(torch.clone, state)
+            self.noise = [tmap(torch.clone, nz) for nz in noises]
         self.warmup: Optional[Transition] = traj
 
         def body() -> None:
             st, self.traj = _run_chunk(
                 params, self.state, self.temp, cfg, continuous, self.noise, dev)
-            _copy_into(self.state, st)
+            copy_into(self.state, st)
 
         self.graph, self.launches, info = capture_graph(
             body, dev, f"{chunk} rollout steps")
@@ -576,42 +509,26 @@ class ChunkGraph:
         ``temperature`` (None: those the buffers hold, the last replay's
         final state); counts the launches it ran."""
         if state is not None:
-            _copy_into(self.state, state)
+            copy_into(self.state, state)
         if isinstance(temperature, torch.Tensor):
             self.temp.copy_(temperature)
         elif temperature is not None:
             self.temp.fill_(float(temperature))
         for buf, nz in zip(self.noise, noises):
-            _copy_into(buf, nz)
+            copy_into(buf, nz)
         self.graph.replay()
         self.launches.replayed()
 
 
-GRAPH_SETS = 4  # captured graphs kept, the most recently used
-# (cfg, chunk, continuous, device, params storage, state shapes) -> graph
-GRAPHS: "OrderedDict[tuple, ChunkGraph]" = OrderedDict()
-
-
 def _graph_key(params, state, cfg: Config, chunk: int, continuous: bool) -> tuple:
-    """A graph reads the params where they were when it was captured: the
-    key holds each tensor's storage address, so params moved to another
-    storage (a restored checkpoint, a new dict) are captured anew, while an
-    in-place update (the optimizer's step) is read by the next replay."""
-    sig = lambda t: (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-    return (
-        cfg, chunk, continuous, str(state.board.data.device),
-        tuple((k, sig(params[k])) for k in sorted(params)),
-        tuple((tuple(t.shape), t.dtype) for t in _leaves(state)),
-    )
-
-
-def clear_graphs() -> None:
-    """Drop every captured graph and its memory pool."""
-    GRAPHS.clear()
+    """A chunk graph is kept for (cfg, chunk, continuous, device, params
+    storage, state shapes)."""
+    return ("rollout", cfg, chunk, continuous, str(state.board.data.device),
+            params_signature(params), tuple((tuple(t.shape), t.dtype) for t in leaves(state)))
 
 
 def _on(noise: Noise, dev: torch.device) -> Noise:
-    return _tmap(lambda t: t.to(dev), noise)
+    return tmap(lambda t: t.to(dev), noise)
 
 
 @torch.no_grad()
@@ -674,26 +591,19 @@ def rollout_chunked(
             keep(c, traj)
         return state, Transition(*out)
 
-    key = _graph_key(params, state, cfg, chunk, continuous)
-    g = GRAPHS.get(key)
-    first = 0
-    if g is None:
-        g = ChunkGraph(params, state, temperature, cfg, chunk, continuous, dev,
-                       chunk_noise(0))
+    g, first = cached_graph(_graph_key(params, state, cfg, chunk, continuous),
+                            lambda: ChunkGraph(params, state, temperature, cfg, chunk,
+                                               continuous, dev, chunk_noise(0)))
+    if first:
         keep(0, g.warmup)
         g.warmup = None
-        GRAPHS[key] = g
-        while len(GRAPHS) > GRAPH_SETS:
-            GRAPHS.popitem(last=False)
-        first = 1
-    GRAPHS.move_to_end(key)
-    for c in range(first, n_chunks):
+    for c in range(int(first), n_chunks):
         if c == 0:
             g.replay(chunk_noise(c), state, temperature)
         else:
             g.replay(chunk_noise(c))
         keep(c, g.traj)
-    return _tmap(torch.clone, g.state), Transition(*out)
+    return tmap(torch.clone, g.state), Transition(*out)
 
 
 def rollout(

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from mlp_ppo_2ply_multi_tpu_torch.core.config import MoveGenConfig
+from mlp_ppo_2ply_multi_tpu_torch.core.tree import tmap
 from mlp_ppo_2ply_multi_tpu_torch.core.types import BAR, BEAR_OFF, NUM_POINTS
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board, apply_submove
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import (
@@ -587,14 +588,6 @@ def enumerate_doubles(
 # ---------------------------------------------------------------------------
 
 
-def _tmap(fn, tree):
-    """``fn`` on every tensor of a tensor or a nested NamedTuple (Board,
-    SlotTable, _Pass)."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    return type(tree)(*(_tmap(fn, x) for x in tree))
-
-
 def _flatten_batch(board: Board, player, dice, dice_tail: Tuple[int, ...]):
     """(flatten fn, flat board, flat int64 player [n], flat int64 dice
     [n, *dice_tail]) for a board batch of any shape; player and dice
@@ -602,7 +595,7 @@ def _flatten_batch(board: Board, player, dice, dice_tail: Tuple[int, ...]):
     bs = board.batch_shape
     n = math.prod(bs)
     dev = board.data.device
-    flat = lambda t: _tmap(lambda a: a.reshape(n, *a.shape[len(bs):]), t)
+    flat = lambda t: tmap(lambda a: a.reshape(n, *a.shape[len(bs):]), t)
     as64 = lambda x: torch.as_tensor(x, device=dev).to(torch.int64)
     fp = torch.broadcast_to(as64(player), bs).reshape(n)
     fd = torch.broadcast_to(as64(dice), (*bs, *dice_tail)).reshape(n, *dice_tail)

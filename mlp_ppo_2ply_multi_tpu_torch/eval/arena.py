@@ -20,23 +20,23 @@ CPU the chunks run eagerly.
 """
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from mlp_ppo_2ply_multi_tpu_torch.actor.rollout import (
-    _capture_stream,
-    _copy_into,
-    _syncs_raise,
-    capture_graph,
-    gumbel,
-)
+from mlp_ppo_2ply_multi_tpu_torch.actor.rollout import gumbel
 from mlp_ppo_2ply_multi_tpu_torch.core.config import Config
 from mlp_ppo_2ply_multi_tpu_torch.core.device import DeviceLike, check_on, resolve_device
+from mlp_ppo_2ply_multi_tpu_torch.core.graphs import (
+    cached_graph,
+    capture_graph,
+    capture_stream,
+    params_signature,
+    syncs_raise,
+)
+from mlp_ppo_2ply_multi_tpu_torch.core.tree import copy_into, tmap
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import MoveSet, board_take, legal_moves
-from mlp_ppo_2ply_multi_tpu_torch.engine.movegen2 import _tmap
 from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
 from mlp_ppo_2ply_multi_tpu_torch.twoply import expectimax
 
@@ -175,16 +175,16 @@ class MatchGraph:
     def __init__(self, params_a, params_b, policy_a, policy_b, cfg: Config, chunk: int,
                  m: _Match, noises: Sequence[MatchNoise], dev: torch.device) -> None:
         run = lambda mm, nzs: _run_steps(params_a, params_b, policy_a, policy_b, cfg, mm, nzs)
-        stream = _capture_stream(dev)
+        stream = capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            with _syncs_raise():
+            with syncs_raise():
                 m = run(m, noises)
-            self.match = _tmap(torch.clone, m)
-            self.noise = [_tmap(torch.clone, nz) for nz in noises]
+            self.match = tmap(torch.clone, m)
+            self.noise = [tmap(torch.clone, nz) for nz in noises]
 
         def body() -> None:
-            _copy_into(self.match, run(self.match, self.noise))
+            copy_into(self.match, run(self.match, self.noise))
 
         self.graph, self.launches, info = capture_graph(body, dev, f"{chunk} match steps")
         self.info = dict(chunk=chunk, batch=m.winner.shape[0], **info)
@@ -193,27 +193,17 @@ class MatchGraph:
         """One chunk on the current stream from the match state the buffers
         hold; counts the launches it ran."""
         for buf, nz in zip(self.noise, noises):
-            _copy_into(buf, nz)
+            copy_into(buf, nz)
         self.graph.replay()
         self.launches.replayed()
 
 
-GRAPH_SETS = 4  # captured match graphs kept, the most recently used
-GRAPHS: "OrderedDict[tuple, MatchGraph]" = OrderedDict()
-
-
 def _graph_key(params_a, params_b, policy_a, policy_b, cfg, batch, chunk, dev) -> tuple:
-    """A graph runs the policies it was captured with (the key holds the
-    policy objects, so each stays alive while its graph is kept) and reads
-    the params where they were when it was captured: the key holds each
-    tensor's storage address, as ``actor.rollout``'s does."""
-    sig = lambda p: tuple((k, p[k].data_ptr(), tuple(p[k].shape), p[k].dtype) for k in sorted(p))
-    return (cfg, batch, chunk, policy_a, policy_b, str(dev), sig(params_a), sig(params_b))
-
-
-def clear_graphs() -> None:
-    """Drop every captured match graph and its memory pool."""
-    GRAPHS.clear()
+    """A match graph is kept for (cfg, batch, chunk, policies, device, both
+    params' storage); the key holds the policy objects, so each stays alive
+    while its graph is kept."""
+    return ("match", cfg, batch, chunk, policy_a, policy_b, str(dev),
+            params_signature(params_a), params_signature(params_b))
 
 
 @torch.no_grad()
@@ -254,7 +244,7 @@ def play_match(
 
     def chunk_noise(i: int) -> List[MatchNoise]:
         if noise is not None:
-            return [_tmap(lambda t: t.to(dev), nz) for nz in noise[i * c:(i + 1) * c]]
+            return [tmap(lambda t: t.to(dev), nz) for nz in noise[i * c:(i + 1) * c]]
         return [draw_match_noise(batch, cfg, gen, dev) for _ in range(c)]
 
     n_chunks = max_steps // c
@@ -263,21 +253,14 @@ def play_match(
             m = _run_steps(params_a, params_b, policy_a, policy_b, cfg, m, chunk_noise(i))
         return MatchResult(m.winner, m.state.win_type, m.state.step_count)
 
-    key = _graph_key(params_a, params_b, policy_a, policy_b, cfg, batch, c, dev)
-    g = GRAPHS.get(key)
-    first = 0
-    if g is None:
-        g = MatchGraph(params_a, params_b, policy_a, policy_b, cfg, c, m, chunk_noise(0), dev)
-        GRAPHS[key] = g
-        while len(GRAPHS) > GRAPH_SETS:
-            GRAPHS.popitem(last=False)
-        first = 1
-    else:
-        _copy_into(g.match, m)
-    GRAPHS.move_to_end(key)
-    for i in range(first, n_chunks):
+    g, first = cached_graph(
+        _graph_key(params_a, params_b, policy_a, policy_b, cfg, batch, c, dev),
+        lambda: MatchGraph(params_a, params_b, policy_a, policy_b, cfg, c, m, chunk_noise(0), dev))
+    if not first:
+        copy_into(g.match, m)
+    for i in range(int(first), n_chunks):
         g.replay(chunk_noise(i))
-    out = _tmap(torch.clone, g.match)
+    out = tmap(torch.clone, g.match)
     return MatchResult(out.winner, out.state.win_type, out.state.step_count)
 
 

@@ -29,6 +29,7 @@ import torch
 
 from mlp_ppo_2ply_multi_tpu_torch.core.config import Config, MoveGenConfig
 from mlp_ppo_2ply_multi_tpu_torch.core.device import device_constant
+from mlp_ppo_2ply_multi_tpu_torch.core.tree import tmap
 from mlp_ppo_2ply_multi_tpu_torch.encoder.features import encode_board
 from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
@@ -135,7 +136,7 @@ def weighted_opponent_response(
 
 
 def _at(tree, i: int):
-    return movegen2._tmap(lambda a: a[i], tree)
+    return tmap(lambda a: a[i], tree)
 
 
 def _wor_unrolled(

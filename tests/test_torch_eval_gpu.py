@@ -12,6 +12,7 @@ import dataclasses
 import pytest
 import torch
 
+from mlp_ppo_2ply_multi_tpu_torch.core import graphs
 from mlp_ppo_2ply_multi_tpu_torch.core.config import Config, MoveGenConfig, TwoPlyConfig
 from mlp_ppo_2ply_multi_tpu_torch.engine import board as B
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import legal_moves
@@ -19,6 +20,7 @@ from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
 from mlp_ppo_2ply_multi_tpu_torch.eval import arena
 from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
 from mlp_ppo_2ply_multi_tpu_torch.model import value_net
+from mlp_ppo_2ply_multi_tpu_torch.ops import fused_value as fv
 from mlp_ppo_2ply_multi_tpu_torch.ops import take_rows as tr
 from mlp_ppo_2ply_multi_tpu_torch.twoply import expectimax
 from tests.test_torch_kernel_gpu import CKPT, _card
@@ -85,7 +87,7 @@ def test_graphed_match_equals_the_eager_step_loop(pair):
     ``match_step`` driven eagerly from the same generator draws: winner,
     win type and steps bit-equal; one nd_tail launch a step, by replay."""
     dev = _card()
-    arena.clear_graphs()
+    graphs.clear_graphs()
     cfg = Config(movegen=SMALL, train=dataclasses.replace(Config().train, td_mode="side0"))
     params = value_net.load_checkpoint(CKPT, device=dev)
     make = {"greedy": arena.greedy_policy(cfg), "random": arena.random_policy(cfg),
@@ -109,13 +111,14 @@ def test_graphed_match_equals_the_eager_step_loop(pair):
         assert torch.equal(res.steps, m.state.step_count)
         assert bool(B.checker_conservation_ok(m.state.board).all())
         assert int((res.winner >= 0).sum()) > 0
-    assert len(arena.GRAPHS) == 1
+    assert len(graphs.GRAPHS) == 1
 
 
 @pytest.mark.gpu
 def test_f32_two_ply_scorer_on_the_card_equals_the_cpu():
     """Without the fused kernel the 2-ply scorer values boards by the f32
-    encode + forward on the card, as JAX does on any device."""
+    encode + forward on the card, as JAX does on any device, and launches
+    no fused_value."""
     dev = _card()
     cfg = Config(movegen=SMALL, twoply=TwoPlyConfig(enabled=True, reply_a_max=32),
                  train=dataclasses.replace(Config().train, td_mode="side0"))
@@ -126,11 +129,13 @@ def test_f32_two_ply_scorer_on_the_card_equals_the_cpu():
     moves = legal_moves(st.board, st.player, st.dice, cfg.movegen)
     cand = B.Board(moves.boards.data[:, :4])
     opp = 1 - st.player
+    before = fv.KERNEL.launches
     got = expectimax.weighted_opponent_response(params, cand, opp, cfg)
     cpu_params = {k: v.cpu() for k, v in params.items()}
     want = expectimax.weighted_opponent_response(
         cpu_params, B.Board(cand.data.cpu()), opp.cpu(), cfg)
     torch.cuda.synchronize()
+    assert fv.KERNEL.launches == before
     assert got.shape == (32, 4) and torch.isfinite(got).all()
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-7)
     assert float(want.abs().max()) > 0.05  # the opening's replies: not all zero

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from mlp_ppo_2ply_multi_tpu_torch.actor import rollout
+from mlp_ppo_2ply_multi_tpu_torch.core import graphs
 from mlp_ppo_2ply_multi_tpu_torch.core.config import Config
 from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
 from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
@@ -76,15 +77,15 @@ def _both(params, cfg, dev, seed, steps=STEPS, chunk=CHUNK, batch=B):
 @pytest.mark.gpu
 def test_graphed_rollout_equals_eager_before_and_after_an_adam_step():
     dev = _card()
-    rollout.clear_graphs()
+    graphs.clear_graphs()
     cfg = _production()
     params = value_net.load_checkpoint(CKPT, device=dev)
     eager, graphed, launches = _both(params, cfg, dev, seed=1)  # captures
     _assert_same(eager, graphed)
-    assert launches == 2 * STEPS and len(rollout.GRAPHS) == 1
+    assert launches == 2 * STEPS and len(graphs.GRAPHS) == 1
     eager, graphed, launches = _both(params, cfg, dev, seed=2)  # replays only
     _assert_same(eager, graphed)
-    assert launches == 2 * STEPS and len(rollout.GRAPHS) == 1
+    assert launches == 2 * STEPS and len(graphs.GRAPHS) == 1
     # the optimizer's in-place step: the graph reads the new weights
     state = td.init_train_state(cfg, device=dev)._replace(
         params=params, opt_state=td.init_adam(params))
@@ -93,14 +94,14 @@ def test_graphed_rollout_equals_eager_before_and_after_an_adam_step():
     assert state.params["w1"] is params["w1"]
     moved, graphed, launches = _both(params, cfg, dev, seed=2)
     _assert_same(moved, graphed)
-    assert len(rollout.GRAPHS) == 1
+    assert len(graphs.GRAPHS) == 1
     assert float((moved[1].value - eager[1].value).abs().max()) > 0
 
 
 @pytest.mark.gpu
 def test_changed_param_storage_recaptures():
     dev = _card()
-    rollout.clear_graphs()
+    graphs.clear_graphs()
     cfg = _production()
     params = value_net.load_checkpoint(CKPT, device=dev)
     _both(params, cfg, dev, seed=3)
@@ -110,13 +111,13 @@ def test_changed_param_storage_recaptures():
     fresh = {k: v.clone() for k, v in params.items()}
     eager2, graphed2, _ = _both(fresh, cfg, dev, seed=3)
     _assert_same(eager2, graphed2)
-    assert len(rollout.GRAPHS) == 3
+    assert len(graphs.GRAPHS) == 3
 
 
 @pytest.mark.gpu
 def test_graphed_two_ply_equals_eager_with_both_kernels():
     dev = _card()
-    rollout.clear_graphs()
+    graphs.clear_graphs()
     cfg = _production(twoply=True)
     params = value_net.load_checkpoint(CKPT, device=dev)
     nd0 = nd_tail.KERNEL.launches
@@ -128,7 +129,7 @@ def test_graphed_two_ply_equals_eager_with_both_kernels():
 @pytest.mark.gpu
 def test_sync_mode_rollout_replays_the_episode():
     dev = _card()
-    rollout.clear_graphs()
+    graphs.clear_graphs()
     cfg = _production()
     cfg = cfg.replace(env=dataclasses.replace(cfg.env, max_timesteps=12))
     params = value_net.load_checkpoint(CKPT, device=dev)
@@ -138,7 +139,7 @@ def test_sync_mode_rollout_replays_the_episode():
         st = vec_env.reset(B, gen, device=dev)
         out.append(fn(params, st, 1.0, cfg, 12, False, gen=gen, device=dev))
     _assert_same(*out)
-    assert rollout.GRAPHS[next(reversed(rollout.GRAPHS))].info["chunk"] == 4
+    assert graphs.GRAPHS[next(reversed(graphs.GRAPHS))].info["chunk"] == 4
 
 
 @pytest.mark.gpu
@@ -168,7 +169,7 @@ def test_a_synchronising_op_in_the_step_raises(monkeypatch):
     """No quiet fallback to the eager loop: a step that synchronises cannot
     be captured, and the rollout raises naming the op."""
     dev = _card()
-    rollout.clear_graphs()
+    graphs.clear_graphs()
     cfg = _production()
     params = value_net.load_checkpoint(CKPT, device=dev)
     real = vec_env.reset_where
@@ -182,4 +183,4 @@ def test_a_synchronising_op_in_the_step_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="synchroniz"):
         rollout.rollout_chunked(params, st, 1.0, cfg, 4, device=dev)
     assert torch.cuda.get_sync_debug_mode() == 0
-    assert len(rollout.GRAPHS) == 0
+    assert len(graphs.GRAPHS) == 0

@@ -43,7 +43,8 @@ def test_isolation_covers_every_port_module():
     """The checks above walk the whole package and chip_smoke.py: the 2-ply
     modules, both kernels' wrappers, the learner, checkpoints, metrics and
     the training CLI, the row-take kernel and its probe, the oracle copies,
-    the arena and the evaluate and play CLIs are among them."""
+    the arena and the evaluate and play CLIs, and the graph cache they share
+    are among them."""
     for m in (
         "mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax",
         "mlp_ppo_2ply_multi_tpu_torch.experimental.nd_tail",
@@ -63,6 +64,8 @@ def test_isolation_covers_every_port_module():
         "mlp_ppo_2ply_multi_tpu_torch.apps.render",
         "mlp_ppo_2ply_multi_tpu_torch.apps.evaluate",
         "mlp_ppo_2ply_multi_tpu_torch.apps.play",
+        "mlp_ppo_2ply_multi_tpu_torch.core.graphs",
+        "mlp_ppo_2ply_multi_tpu_torch.core.tree",
     ):
         assert m in MODULES, m
     assert (ROOT / "chip_smoke.py").exists()

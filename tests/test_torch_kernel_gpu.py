@@ -216,31 +216,6 @@ def test_single_pass_tail_launches_the_kernel_whatever_the_flag():
 
 
 @pytest.mark.gpu
-def test_twoply_scorer_raises_without_the_value_kernel():
-    from mlp_ppo_2ply_multi_tpu_torch.core.config import Config, TwoPlyConfig
-    from mlp_ppo_2ply_multi_tpu_torch.engine.board import initial_board
-    from mlp_ppo_2ply_multi_tpu_torch.twoply import expectimax
-
-    """It no longer raises: without the value kernel the scorer values
-    boards by the f32 encode + forward on the card, as JAX does on any
-    device, and launches no fused_value."""
-    dev = _card()
-    cfg = Config(twoply=TwoPlyConfig(enabled=True))
-    params = value_net.load_checkpoint(CKPT, device=dev)
-    before = fv.KERNEL.launches
-    got = expectimax.weighted_opponent_response(
-        params, initial_board((2, 4), dev), torch.zeros(2, dtype=torch.int64, device=dev), cfg
-    )
-    want = expectimax.weighted_opponent_response(
-        {k: v.cpu() for k, v in params.items()}, initial_board((2, 4), "cpu"),
-        torch.zeros(2, dtype=torch.int64), cfg
-    )
-    torch.cuda.synchronize()
-    assert fv.KERNEL.launches == before
-    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-7)
-
-
-@pytest.mark.gpu
 def test_nd_tail_kernel_raises_on_what_it_cannot_take():
     from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
 

@@ -31,6 +31,7 @@ from mlp_ppo_2ply_multi_tpu.env import vec_env as jE
 from mlp_ppo_2ply_multi_tpu.model import value_net as jV
 from mlp_ppo_2ply_multi_tpu_torch.actor import rollout as tR
 from mlp_ppo_2ply_multi_tpu_torch.core import config as tcfg
+from mlp_ppo_2ply_multi_tpu_torch.core import tree
 from mlp_ppo_2ply_multi_tpu_torch.core.device import device_constant
 from mlp_ppo_2ply_multi_tpu_torch.engine import board as tB
 from mlp_ppo_2ply_multi_tpu_torch.engine import movegen as tMG
@@ -264,16 +265,16 @@ def test_chunk_graph_replay_fills_its_buffers_and_counts(monkeypatch, tmp_path):
     g.graph = _StubGraph()
     g.launches = _cuda_build.GraphLaunches()
     g.launches.per_replay = {k: 2 * CHUNK}
-    g.state = tR._tmap(torch.zeros_like, tE.reset(B, gen, device="cpu"))
-    g.noise = [tR._tmap(torch.zeros_like, tR.draw_noise(B, cfg, gen, cpu)) for _ in range(CHUNK)]
+    g.state = tree.tmap(torch.zeros_like, tE.reset(B, gen, device="cpu"))
+    g.noise = [tree.tmap(torch.zeros_like, tR.draw_noise(B, cfg, gen, cpu)) for _ in range(CHUNK)]
     g.temp = torch.zeros(())
     state = tE.reset(B, gen, device="cpu")
     noise = [tR.draw_noise(B, cfg, gen, cpu) for _ in range(CHUNK)]
     g.replay(noise, state, 0.7)
-    for a, b in zip(tR._leaves(g.state), tR._leaves(state)):
+    for a, b in zip(tree.leaves(g.state), tree.leaves(state)):
         assert torch.equal(a, b)
     for buf, nz in zip(g.noise, noise):
-        assert all(torch.equal(a, b) for a, b in zip(tR._leaves(buf), tR._leaves(nz)))
+        assert all(torch.equal(a, b) for a, b in zip(tree.leaves(buf), tree.leaves(nz)))
     assert float(g.temp) == pytest.approx(0.7)
     g.replay(noise)  # the state the last replay left, same temperature
     g.replay(noise, temperature=torch.tensor(1.5))
@@ -311,5 +312,5 @@ def test_canonical_dispatch_is_movegen2():
     got = tMG.legal_moves(st.board, st.player, st.dice, cfg)
     want = tMG2.legal_moves(st.board, st.player, st.dice, cfg)
     assert got.count.sum() > 0
-    for a, b in zip(tR._leaves(got), tR._leaves(want)):
+    for a, b in zip(tree.leaves(got), tree.leaves(want)):
         assert a.dtype == b.dtype and torch.equal(a, b)

@@ -108,10 +108,10 @@ def test_two_update_continuous_production_run(tmp_path):
 
 
 @pytest.mark.gpu
-def test_two_ply_without_production_raises_on_the_card(tmp_path):
-    """It no longer raises: the exact (unfused) 2-ply scorer runs its f32
-    encode + forward on the card, as JAX runs it on any device, and the run
-    launches no fused_value."""
+def test_two_ply_without_production_runs_the_f32_scorer_on_the_card(tmp_path):
+    """The exact (unfused) 2-ply scorer runs its f32 encode + forward on the
+    card, as JAX runs it on any device, and the run launches no
+    fused_value."""
     _card()
     before = fv.KERNEL.launches
     rc = train.main([

@@ -26,6 +26,7 @@ from mlp_ppo_2ply_multi_tpu.engine import movegen as jMG
 from mlp_ppo_2ply_multi_tpu.engine import movegen2 as jMG2
 from mlp_ppo_2ply_multi_tpu.experimental import nd_tail as jND
 from mlp_ppo_2ply_multi_tpu_torch.core import config as tcfg
+from mlp_ppo_2ply_multi_tpu_torch.core import tree
 from mlp_ppo_2ply_multi_tpu_torch.engine import board as tB
 from mlp_ppo_2ply_multi_tpu_torch.engine import movegen as tMG
 from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2 as tMG2
@@ -169,7 +170,7 @@ def _torch_scorer_pieces(boards, opp, mods):
     s1_all, b1_all = MG2.die_tables(bd, opp_k)
     ctx_all = MG2.die_ctxs(bd, opp_k)
     stats_all = MGM.slot_stats(b1_all, opp_k[None, ..., None])
-    at = lambda t, i: MG2._tmap(lambda a: a[i], t)
+    at = lambda t, i: tree.tmap(lambda a: a[i], t)
     out = {"s1_all": s1_all, "b1_all": b1_all, "ctx_all": ctx_all}
     for r0, r1 in ND_ROLLS:
         hi, lo = max(r0, r1), min(r0, r1)
