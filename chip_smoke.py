@@ -23,7 +23,9 @@ step per episode. Path 6 is the row-take probe (``scripts.probe_take``), the
 port of the TPU probe kernels P1-P3. Path 7 is the evaluate CLI's matches
 (``eval.arena.play_match`` as replayed CUDA graphs at ``Config()``, 1024
 games, 400 steps), whose merged legal moves run nd_tail at K = 576; path 8
-the play CLI at batch 1. Phases, in order; any failure exits non-zero:
+the play CLI at batch 1; path 9 the trajectory-parity games
+(``scripts.trajectory_parity``) through the sorted engine, whose row takes
+run the redesigned take_rows. Phases, in order; any failure exits non-zero:
 
 1. device: torch's view of the card and nvidia-smi's name and power limit;
 2. build: one nvcc per kernel source, started together (seconds,
@@ -99,9 +101,12 @@ the play CLI at batch 1. Phases, in order; any failure exits non-zero:
     ``take_rows_plain`` and, on in-range indices, to ``torch.gather``: at
     the probe's shape (N = 4096, K = W = 128), N = 4099, the actor's tier-1
     take (K = 96 from W = 448, int64) and that shape with indices outside
-    [0, W); kernel, torch.gather and plain ms, and the bound; then the probe
-    entry point (``scripts.probe_take``) in-process and as subprocesses in
-    the modes batched (P1), fused (P2) and bdiag8 (P3): each exact, exit 0;
+    [0, W), and the sorted engine's four take shapes (K = 512 from W = 27,
+    also with indices outside [0, W), 128 from 16, 288 from 128, 512 from
+    288); kernel, torch.gather and plain ms, the bound and the kernel's
+    branch (``take_rows.plan``); then the probe entry point
+    (``scripts.probe_take``) in-process and as subprocesses in the modes
+    batched (P1), fused (P2) and bdiag8 (P3): each exact, exit 0;
 24. arena, card vs CPU: greedy vs greedy and random vs greedy at B = 32,
     64 steps, small widths, dice and noise from one numpy stream: the
     graphed match on the card gives the CPU's MatchResult;
@@ -117,6 +122,16 @@ the play CLI at batch 1. Phases, in order; any failure exits non-zero:
     nd_tail launches gated;
 27. the play CLI with ``--engine torch`` on the card and ``--engine
     oracle`` in subprocesses, moves piped in: exit 0, the same agent moves;
+28. the sorted reference-order engine (``movegen.legal_moves`` with
+    ``MoveGenConfig(algo="sorted")``), whose row takes run take_rows: card
+    vs CPU at B = 256 on states 4 canonical decisions off the opening
+    (boards, valid, count bit-equal), one decision at B = 4096 with every
+    synchronising op made to raise, its ms, peak memory and top device ops
+    (torch.profiler); then the port's
+    trajectory script (``scripts.trajectory_parity.run``) over the 4096
+    games of ``artifacts/traj_jax_4096.jsonl`` on the card: 4096/4096 hashes
+    equal, the transcript sha256 of ``artifacts/trajectory_parity.json``,
+    its wall seconds, and exactly 8 take_rows launches a decision;
 
 then the kernels line (launches summed over every path's timed run) and the
 result line. Phases 4, 7, 10 and 13 time the eager step; the training runs
@@ -172,6 +187,9 @@ TAKE_REPLACES = ("scripts/probe_pallas_batched_dot.py:55 (P1 take_pallas), "
 # the probe modes run on the probe's main path: one JAX mode of each of P1,
 # P2 and P3
 PROBE_MODES = ("batched", "fused", "bdiag8")
+# phase 23: the sorted engine's takes at its default widths, (name, W, K)
+SORTED_TAKES = (("sorted_nd_first", 27, 512), ("sorted_level2", 16, 128),
+                ("sorted_level3", 128, 288), ("sorted_level4", 288, 512))
 B_ARENA_SMALL = 32  # phase 24: card vs CPU at the small widths
 ARENA_SMALL_STEPS = 64
 B_EVAL = 1024  # the evaluate CLI's --games
@@ -195,6 +213,12 @@ TRAIN_2PLY = ["--two-ply", "--production", "--mode", "continuous",
 TRAIN_SYNC = ["--mode", "sync", "--production", "--per-episode-updates",
               "--batch-games", "256", "--updates", "1"]
 GRAPH_STEPS_1PLY = 64  # graphed 1-ply rollouts: 16 replays of a 4-step chunk
+B_SORTED_SMALL = 256  # phase 28: the sorted engine, card vs CPU
+B_SORTED = 4096  # and one decision timed, the trajectory's games
+# the sorted engine's row takes a decision: 2 first-ply, 3 parent, 3 forced-shorter
+SORTED_TAKES_PER_DECISION = 8
+TRAJ_HASHES = ROOT / "artifacts" / "traj_jax_4096.jsonl"
+TRAJ_PARITY = ROOT / "artifacts" / "trajectory_parity.json"
 
 
 def log(*args) -> None:
@@ -225,13 +249,15 @@ def _port():
     from mlp_ppo_2ply_multi_tpu_torch.eval import arena
     from mlp_ppo_2ply_multi_tpu_torch.ops import take_rows
     from mlp_ppo_2ply_multi_tpu_torch.scripts import probe_take
+    from mlp_ppo_2ply_multi_tpu_torch.engine import movegen
+    from mlp_ppo_2ply_multi_tpu_torch.scripts import trajectory_parity
 
     return dict(
         rollout=rollout, Config=Config, board=board,
         movegen2=movegen2, vec_env=vec_env, value_net=value_net,
         fv=fused_value, nd=nd_tail, X=expectimax, td=td, train=train, ckpt=checkpoint,
         take=take_rows, probe=probe_take, arena=arena, evaluate=evaluate, cfg=config_mod,
-        graphs=graphs, tree=tree,
+        graphs=graphs, tree=tree, movegen=movegen, traj=trajectory_parity,
     )
 
 
@@ -592,6 +618,16 @@ def _dev_t(e) -> float:
     return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
 
 
+def _device_events(prof):
+    """The trace's device events (kernels, copies, sets), averaged by name.
+    torch.profiler also gives each CPU op the device time of the kernels it
+    launched, so a sum over every event counts an eager kernel twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
 def profile_steps(P, params, state, cfg, dev, gen, steps, step_ms, card, tag):
     """Device busy time, idle share and the top device ops of ``steps``
     steps under torch.profiler."""
@@ -606,10 +642,10 @@ def profile_steps(P, params, state, cfg, dev, gen, steps, step_ms, card, tag):
             )
         _sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
-    ev = prof.key_averages()
+    ev = _device_events(prof)
     dev_t = _dev_t
     busy_us = sum(dev_t(e) for e in ev)
-    n_kern = sum(e.count for e in ev if dev_t(e) > 0)
+    n_kern = sum(e.count for e in ev)
     if busy_us > 0:
         busy_ms = busy_us / steps / 1e3
         # the profiler slows the host, so the traced wall overstates the step;
@@ -1431,7 +1467,7 @@ def _graph_busy(run, steps, dev):
         run()
         _sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us = sum(_dev_t(e) for e in prof.key_averages())
+    busy_us = sum(_dev_t(e) for e in _device_events(prof))
     return (busy_us / steps / 1e3 if busy_us > 0 else None), wall_ms / steps
 
 
@@ -1526,8 +1562,10 @@ def take_bound(boards, idx):
 def take_cases(P, dev):
     """Phase 23's inputs: the probe's own (N = 4096, K = W = 128), an N that
     is a multiple of no block, the actor's tier-1 take shape (K = 96 from
-    W = 448, int64 indices as ``board_take`` has them), and that shape with
-    indices outside [0, W)."""
+    W = 448, int64 indices as ``board_take`` has them), that shape with
+    indices outside [0, W), and the sorted engine's four take shapes at
+    N = 4096 with int64 indices as it has them (the first-ply take, W = 27,
+    also with indices outside [0, W))."""
     gen = torch.Generator(device=dev).manual_seed(23)
 
     def rand(n, w, k, dtype, outside=0):
@@ -1544,7 +1582,8 @@ def take_cases(P, dev):
         ("n4099", *rand(4099, 128, 128, torch.int32)),
         ("actor_tier1", *rand(4096, 448, 96, torch.int64)),
         ("outside", *rand(4096, 448, 96, torch.int32, outside=4096)),
-    ]
+        ("sorted_w27_outside", *rand(4096, 27, 512, torch.int64, outside=4096)),
+    ] + [(name, *rand(B_SORTED, w, k, torch.int64)) for name, w, k in SORTED_TAKES]
 
 
 def phase_take(P, dev, card):
@@ -1580,7 +1619,7 @@ def phase_take(P, dev, card):
         row = dict(case=name, n=n, w=w, k=k, idx_dtype=str(idx.dtype).split(".")[-1],
                    outside=int((~ok).sum()), max_abs_err=err, ms=(k1 + k2) / 2,
                    library_ms=(l1 + l2) / 2, plain_ms=plain_ms, runs_ms=[k1, l1, l2, k2],
-                   **take_bound(boards, idx))
+                   plan=T.plan(n, w, k, c), **take_bound(boards, idx))
         row["bound_share"] = row["bound_ms"] / row["ms"]
         log(f"[23 take] {json.dumps(row)} {card}")
         rows[name] = row
@@ -1862,6 +1901,103 @@ def phase_play_cli(card):
 
 
 
+# ---------------------------------------------------------------------------
+# the sorted reference-order engine and the trajectory games
+# ---------------------------------------------------------------------------
+
+
+def sorted_states(P, batch, dev, gen, steps=4):
+    """States ``steps`` canonical decisions off the opening: merged
+    canonical legal moves, a uniform legal action from ``gen``."""
+    VE, mg = P["vec_env"], P["cfg"].MoveGenConfig()
+    state = VE.reset(batch, gen, device=dev)
+    for _ in range(steps):
+        moves = P["movegen"].legal_moves(state.board, state.player, state.dice, mg)
+        raw = torch.randint(0, 2**31 - 1, (batch,), generator=gen, device=dev)
+        action = raw % moves.count.clamp(min=1)
+        state = VE.step(state, moves, action, VE.roll_dice(gen, (batch,), dev),
+                        P["cfg"].EnvConfig()).state
+    return state
+
+
+def phase_sorted_engine(P, dev, card):
+    """28: the sorted engine (``movegen.legal_moves`` with algo "sorted"):
+    card vs CPU at B = 256, one decision at B = 4096 with every
+    synchronising op made to raise, its ms, peak memory and top device ops,
+    then the port's
+    trajectory script over the 4096 games of ``artifacts/traj_jax_4096.jsonl``
+    on the card: every hash equal, the transcript sha256 of
+    ``artifacts/trajectory_parity.json``, exactly 8 take_rows launches a
+    decision."""
+    M, T, TP = P["movegen"], P["take"], P["traj"]
+    mg = P["cfg"].MoveGenConfig(algo="sorted")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    state = sorted_states(P, B_SORTED_SMALL, dev, gen)
+    got = M.legal_moves(state.board, state.player, state.dice, mg)
+    cpu = _to_cpu(state)
+    want = M.legal_moves(cpu.board, cpu.player, cpu.dice, mg)
+    for name, a, b in (("boards", got.boards.data, want.boards.data),
+                       ("valid", got.valid, want.valid), ("count", got.count, want.count)):
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            raise AssertionError(f"[28 sorted] card vs CPU: {name} differs")
+    doubles = int((cpu.dice[:, 0] == cpu.dice[:, 1]).sum())
+    log(f"[28 sorted] card vs CPU at B={B_SORTED_SMALL}: boards, valid and count bit-equal "
+        f"({int(want.count.sum())} moves, {doubles} doubles rolls) {card}")
+
+    state = sorted_states(P, B_SORTED, dev, gen)
+    M.legal_moves(state.board, state.player, state.dice, mg)
+    _sync(dev)
+    with syncs_raise(dev):
+        ms = M.legal_moves(state.board, state.player, state.dice, mg)
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    M.legal_moves(state.board, state.player, state.dice, mg)
+    _sync(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    dec_ms = _time_ms(lambda: M.legal_moves(state.board, state.player, state.dice, mg), dev, 5)
+    log(f"[28 sorted] one decision at B={B_SORTED}: no op synchronised the host with the card; "
+        f"{dec_ms:.3f} ms a decision (CUDA events, 5 after 3), peak {peak / 2**30:.3f} GiB "
+        f"above its inputs; {int(ms.count.sum())} moves {card}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        M.legal_moves(state.board, state.player, state.dice, mg)
+        _sync(dev)
+    ev = _device_events(prof)
+    busy = sum(_dev_t(e) for e in ev) / 1e3
+    log(f"[28 sorted] profiler, one decision: device busy {busy:.3f} ms of "
+        f"{dec_ms:.3f}, {sum(e.count for e in ev)} device ops {card}")
+    for e in sorted(ev, key=_dev_t, reverse=True)[:10]:
+        log(f"[28 sorted]   {_dev_t(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    del state, ms, got
+
+    calls = [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return M.legal_moves(*a, **k)
+
+    T.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    with _Swap(TP, "legal_moves", counted):
+        recs = TP.run(B_SORTED, device=dev, log=lambda m: log(f"[28 sorted] {m}"))
+    wall = time.perf_counter() - t0
+    launches = T.KERNEL.launches
+    result = TP.compare(TP.load(str(TRAJ_HASHES)), {r["g"]: r for r in recs})
+    sha = json.loads(TRAJ_PARITY.read_text())["transcript_sha256"]
+    log(f"[28 sorted] trajectory games: {json.dumps(result)}; {wall:.1f} s wall, "
+        f"{calls[0]} decisions of the shrinking batch, {launches} take_rows launches {card}")
+    if result["games_compared"] != B_SORTED or result["bit_identical"] != B_SORTED:
+        raise AssertionError(f"[28 sorted] {result['bit_identical']}/{result['games_compared']} "
+                             "trajectory hashes equal the artifact's")
+    if result["transcript_sha256"] != sha:
+        raise AssertionError("[28 sorted] transcript sha256 differs from trajectory_parity.json")
+    _gate(launches, SORTED_TAKES_PER_DECISION * calls[0], "trajectory take_rows")
+    return dict(launches=launches, decisions=calls[0], wall_s=wall, ms_per_decision=dec_ms,
+                peak_gib=peak / 2**30, **result)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
@@ -1944,6 +2080,7 @@ def main() -> int:
     ev = phase_eval_graph_vs_eager(P, dev, card)
     cli = phase_evaluate_cli(P, dev, card)
     phase_play_cli(card)
+    srt = phase_sorted_engine(P, dev, card)
     eval_nd = ev["launches"] + cli["launches"]
     nd576 = ev["nd_tail_k576"]
     probe = take_rows["probe"]
@@ -2005,8 +2142,9 @@ def main() -> int:
             "route": "cuda",
             "source": TAKE_SOURCE,
             "replaces": TAKE_REPLACES,
-            # the probe entry point's run (phase 23), counted from 0
-            "launches": take_launches,
+            # the probe entry point's run (phase 23) and the trajectory
+            # games' (phase 28), each counted from 0
+            "launches": take_launches + srt["launches"],
             "max_abs_err": max(r["max_abs_err"] for r in take_rows.values()),
             # one launch at the probe's shape, [4096, K = 128] from W = 128
             "ms": probe["ms"],
@@ -2014,7 +2152,11 @@ def main() -> int:
             "bound_ms": probe["bound_ms"],
             "bound_by": probe["bound_by"],
             "library_ms": probe["library_ms"],  # torch.gather, which the port never calls here
-            "paths": {"probe": {"launches": take_launches, "modes": list(PROBE_MODES)}},
+            "paths": {"probe": {"launches": take_launches, "modes": list(PROBE_MODES)},
+                      "sorted": {"launches": srt["launches"], "decisions": srt["decisions"],
+                                 "per_decision": SORTED_TAKES_PER_DECISION,
+                                 # timed in phase 23, under "shapes"
+                                 "shapes": [n for n, _, _ in SORTED_TAKES]}},
             "shapes": take_rows,
             "ok": True,
         },

@@ -76,6 +76,7 @@ from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import (
     board_take,
     board_where,
     legal_moves,
+    moveset_width,
 )
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen2 import (
     SplitMoves,
@@ -131,11 +132,13 @@ class TwoPlyNoise(NamedTuple):
 
 def _noise_shapes(batch: int, cfg: Config) -> Tuple[int, int, int]:
     """(t1, wn, W) of the 1-ply sampling noise, gumbel_t1 [batch, t1] and
-    gumbel_t2 [wn, W]. W is the merged slot width max(a_max, nd_dedup_k) of
-    both ``legal_moves`` and ``legal_moves_split``. The two-tier actor has
-    t1 = tier and wn = max(8, batch // actor_tier_wide_div); without a tier
-    (no fused kernel, a tier of 0 or one not below W) t1 = W and wn = 0."""
-    w = max(cfg.movegen.a_max, cfg.movegen.nd_dedup_k)
+    gumbel_t2 [wn, W]. W is the slot width of the engine's moves
+    (``moveset_width``: max(a_max, nd_dedup_k) for the canonical
+    ``legal_moves`` and ``legal_moves_split``, a_max for the sorted engine).
+    The two-tier actor has t1 = tier and wn = max(8, batch //
+    actor_tier_wide_div); without a tier (no fused kernel, a tier of 0 or
+    one not below W) t1 = W and wn = 0."""
+    w = moveset_width(cfg.movegen)
     tier = cfg.model.actor_tier_width
     if not (cfg.model.fused_actor_kernel and 0 < tier < w):
         return w, 0, w
@@ -181,6 +184,14 @@ def _temperature(temperature, dev: torch.device) -> torch.Tensor:
     if isinstance(temperature, torch.Tensor):
         return temperature.to(device=dev, dtype=torch.float32)
     return torch.full((), float(temperature), dtype=torch.float32, device=dev)
+
+
+def _overflow(moves: MoveSet) -> torch.Tensor:
+    """The MoveSet's overflow flag; all False for an engine that tracks none
+    (the sorted engine), as JAX ``actor/rollout.py:346-350`` reads it."""
+    if moves.overflow is None:
+        return torch.zeros_like(moves.count, dtype=torch.bool)
+    return moves.overflow
 
 
 def _sample(values, valid, sgn, gumbel_noise, temperature) -> torch.Tensor:
@@ -380,14 +391,14 @@ def rollout_step(
             temperature, cfg,
         )
         res = vec_env.step(state, moves, action, noise.next_dice, cfg.env)
-        count, overflow = moves.count, moves.overflow
+        count, overflow = moves.count, _overflow(moves)
     elif not cfg.movegen.split_planes:
         moves = legal_moves(state.board, state.player, state.dice, cfg.movegen)
         action, v_obs, tier_ov = select_action(
             params, state, moves, noise.gumbel_t1, noise.gumbel_t2, temperature, cfg
         )
         res = vec_env.step(state, moves, action, noise.next_dice, cfg.env)
-        count, overflow = moves.count, tier_ov | moves.overflow
+        count, overflow = moves.count, tier_ov | _overflow(moves)
     else:
         sm = legal_moves_split(state.board, state.player, state.dice, cfg.movegen)
         side0 = cfg.train.td_mode == "side0"

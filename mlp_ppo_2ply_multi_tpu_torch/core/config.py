@@ -106,7 +106,8 @@ class MoveGenConfig:
     a_max: int = 512
     # Enumeration engine: "canonical" (sortless, fast; doubles in canonical
     # rather than reference-DFS order — identical move SETS) or "sorted"
-    # (exact reference insertion order everywhere; ~20x slower on TPU).
+    # (exact reference insertion order everywhere; slower: its dedup sorts
+    # every candidate of every level).
     algo: str = "canonical"
     # Canonical engine: non-doubles candidates are compacted to this many
     # slots before the pairwise first-occurrence dedup; bounds the pre-dedup

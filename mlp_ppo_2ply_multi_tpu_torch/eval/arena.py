@@ -36,7 +36,12 @@ from mlp_ppo_2ply_multi_tpu_torch.core.graphs import (
     syncs_raise,
 )
 from mlp_ppo_2ply_multi_tpu_torch.core.tree import copy_into, tmap
-from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import MoveSet, board_take, legal_moves
+from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import (
+    MoveSet,
+    board_take,
+    legal_moves,
+    moveset_width,
+)
 from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
 from mlp_ppo_2ply_multi_tpu_torch.twoply import expectimax
 
@@ -118,8 +123,8 @@ class MatchNoise(NamedTuple):
 
 
 def noise_width(cfg: Config) -> int:
-    """W, the merged legal-move width max(a_max, nd_dedup_k)."""
-    return max(cfg.movegen.a_max, cfg.movegen.nd_dedup_k)
+    """W, the slot width of the engine's legal moves (``moveset_width``)."""
+    return moveset_width(cfg.movegen)
 
 
 def draw_match_noise(batch: int, cfg: Config, gen: Optional[torch.Generator],

@@ -18,8 +18,11 @@ Two implementations of one function, bit-identical:
   first use (``ops/_cuda_build.py``) and bound with ``ctypes``.
 
 ``take_rows`` routes a CPU tensor to the plain version and a CUDA tensor to
-the kernel, and raises on anything else. The port's own takes
-(``engine.movegen.board_take``) stay ``torch.gather``.
+the kernel, and raises on anything else. The sorted move generator
+(``engine.movegen``, ``algo="sorted"``) takes its first-ply, parent and
+forced-shorter rows through it; the canonical engine's ``board_take`` stays
+``torch.gather``. ``plan`` says which branch of the kernel (a game's table
+staged in shared memory, or its used rows gathered) a shape takes.
 """
 from __future__ import annotations
 
@@ -40,6 +43,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.take_rows_launch.restype = ctypes.c_int
+    lib.take_rows_plan.argtypes = [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.take_rows_plan.restype = ctypes.c_int
 
 
 KERNEL = CudaKernel(_SRC, _bind)
@@ -74,10 +82,21 @@ def take_rows_plain(boards: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                                         device=boards.device))
 
 
+def plan(n: int, w: int, k: int, c: int) -> dict:
+    """The kernel's launch plan for these shapes (builds the library):
+    ``staged`` (the table in shared memory) or the row gather, games a CTA,
+    rows a gather tile, shared memory bytes."""
+    out = (ctypes.c_int * 4)()
+    rc = KERNEL.load().take_rows_plan(n, w, k, c // 4, out)
+    if rc != 0:
+        raise ValueError(f"the take_rows kernel takes no [{n}, {k}, {c}] from W = {w}")
+    return dict(staged=bool(out[0]), games=out[1], tile_rows=out[2], smem_bytes=out[3])
+
+
 def launch_kernel(boards: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream. The operands must be
-    contiguous and 4-byte aligned, with C a multiple of 4; raises otherwise.
-    Counts the launch (``CudaKernel.count_launch``)."""
+    contiguous and 4-byte aligned, with C a multiple of 4 (up to about
+    3 KB); raises otherwise. Counts the launch (``CudaKernel.count_launch``)."""
     _check(boards, idx)
     if not boards.is_cuda:
         raise ValueError(f"the take_rows kernel runs on cuda, inputs are on {boards.device}")

@@ -43,8 +43,9 @@ def test_isolation_covers_every_port_module():
     """The checks above walk the whole package and chip_smoke.py: the 2-ply
     modules, both kernels' wrappers, the learner, checkpoints, metrics and
     the training CLI, the row-take kernel and its probe, the oracle copies,
-    the arena and the evaluate and play CLIs, and the graph cache they share
-    are among them."""
+    the arena and the evaluate and play CLIs, the graph cache they share,
+    and the sorted engine (its hashes, dedup and takes) with its trajectory
+    script are among them."""
     for m in (
         "mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax",
         "mlp_ppo_2ply_multi_tpu_torch.experimental.nd_tail",
@@ -66,6 +67,9 @@ def test_isolation_covers_every_port_module():
         "mlp_ppo_2ply_multi_tpu_torch.apps.play",
         "mlp_ppo_2ply_multi_tpu_torch.core.graphs",
         "mlp_ppo_2ply_multi_tpu_torch.core.tree",
+        "mlp_ppo_2ply_multi_tpu_torch.engine.board",
+        "mlp_ppo_2ply_multi_tpu_torch.engine.movegen",
+        "mlp_ppo_2ply_multi_tpu_torch.scripts.trajectory_parity",
     ):
         assert m in MODULES, m
     assert (ROOT / "chip_smoke.py").exists()
@@ -133,13 +137,14 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 
 def test_eval_entry_points_raise_without_cuda(monkeypatch):
-    """The evaluate and play CLIs, the arena and the take probe run on the
-    card unless asked for the CPU; without one they raise."""
+    """The evaluate and play CLIs, the arena, the take probe and the
+    trajectory script run on the card unless asked for the CPU; without one
+    they raise."""
     from mlp_ppo_2ply_multi_tpu_torch.apps import evaluate, play
     from mlp_ppo_2ply_multi_tpu_torch.core.config import Config
     from mlp_ppo_2ply_multi_tpu_torch.eval import arena
     from mlp_ppo_2ply_multi_tpu_torch.model import value_net
-    from mlp_ppo_2ply_multi_tpu_torch.scripts import probe_take
+    from mlp_ppo_2ply_multi_tpu_torch.scripts import probe_take, trajectory_parity
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Config()
@@ -148,6 +153,7 @@ def test_eval_entry_points_raise_without_cuda(monkeypatch):
     for make in (
         lambda: evaluate.main(["--games", "2", "--max-steps", "1"]),
         lambda: probe_take.main(["gather", "4"]),
+        lambda: trajectory_parity.main(["torch", "--games", "2"]),
         lambda: arena.play_match(params, params, pol, pol, None, cfg, 2, 1),
         lambda: play.TorchEngine({k: v.numpy() for k, v in params.items()}),
     ):

@@ -12,7 +12,8 @@ capturable as a CUDA graph, and the move generator's engine dispatch.
   continuous and sync, and a step count that 4 does not divide.
 * The cached device constants equal their numpy tables and are made once
   per device; the graph's launch accounting adds captured x replays (with
-  stubs: no graph runs on the CPU); ``algo="sorted"`` raises everywhere.
+  stubs: no graph runs on the CPU); ``algo="sorted"`` runs everywhere but
+  in ``legal_moves_split``.
 
 The graphs themselves run on the card: tests/test_torch_graph_gpu.py.
 """
@@ -287,23 +288,36 @@ def test_chunk_graph_replay_fills_its_buffers_and_counts(monkeypatch, tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_sorted_engine_raises_everywhere():
+def test_sorted_engine_runs_except_in_legal_moves_split():
+    """The sorted engine runs through ``movegen.legal_moves``, the merged
+    rollout and the 2-ply root enumeration (the 2-ply replies call
+    movegen2, canonical, as in JAX), with no overflow flagged; only
+    ``legal_moves_split``, canonical-only in JAX too, raises, and with it
+    the split-planes step."""
     base = split_cfg()
     params = tV.init_params(base.model, device="cpu")
     st = tE.reset(B, torch.Generator().manual_seed(0), device="cpu")
     sorted_mg = dataclasses.replace(base.movegen, algo="sorted")
-    with pytest.raises(NotImplementedError):
-        tMG.legal_moves(st.board, st.player, st.dice, sorted_mg)
+    ms = tMG.legal_moves(st.board, st.player, st.dice, sorted_mg)
+    assert ms.overflow is None and ms.valid.shape == (B, sorted_mg.a_max)
+    assert bool((ms.count > 0).all())
     with pytest.raises(NotImplementedError):
         tMG2.legal_moves_split(st.board, st.player, st.dice, sorted_mg)
+    split = base.replace(movegen=sorted_mg)
+    with pytest.raises(NotImplementedError):
+        tR.rollout_step(params, st, 1.0, split, True, gen=torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        tR.rollout_chunked(params, st, 1.0, split, 2, chunk=2, device="cpu")
     merged = base.replace(movegen=dataclasses.replace(sorted_mg, split_planes=False))
     twoply = twoply_cfg()
     twoply = twoply.replace(movegen=dataclasses.replace(twoply.movegen, algo="sorted"))
-    for cfg in (base.replace(movegen=sorted_mg), merged, twoply):
-        with pytest.raises(NotImplementedError):
-            tR.rollout_step(params, st, 1.0, cfg, True, gen=torch.Generator(), device="cpu")
-        with pytest.raises(NotImplementedError):
-            tR.rollout_chunked(params, st, 1.0, cfg, 2, chunk=2, device="cpu")
+    for cfg in (merged, twoply):
+        gen = torch.Generator().manual_seed(1)
+        new, t = tR.rollout_step(params, st, 1.0, cfg, True, gen=gen, device="cpu")
+        assert bool(t.recorded.any()) and not bool(t.overflow.any())
+        assert bool(tB.checker_conservation_ok(new.board).all())
+        _, traj = tR.rollout_chunked(params, st, 1.0, cfg, 2, chunk=2, device="cpu")
+        assert tuple(traj.num_moves.shape) == (2, B) and not bool(traj.overflow.any())
 
 
 def test_canonical_dispatch_is_movegen2():

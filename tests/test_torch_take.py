@@ -36,6 +36,20 @@ def test_plain_take_matches_take_along_axis(n, w, k, dtype):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# the sorted engine's takes (engine/movegen.py): non-doubles' first ply and
+# the doubles levels' parents, (W, K) at the default widths
+SORTED_SHAPES = [(27, 512), (16, 128), (128, 288), (288, 512)]
+
+
+@pytest.mark.parametrize("w,k", SORTED_SHAPES)
+def test_plain_take_matches_take_along_axis_at_the_sorted_engine_shapes(w, k):
+    boards, idx = _inputs(w + k, 9, w, k, dtype=np.int64)
+    got = tr.take_rows(torch.from_numpy(boards), torch.from_numpy(idx))
+    want = np.take_along_axis(boards, idx[..., None], axis=1)
+    assert got.shape == (9, k, 52)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("n,w,k", SHAPES[:3])
 def test_plain_take_matches_torch_gather(n, w, k):
     boards, idx = _inputs(3 + k, n, w, k)
