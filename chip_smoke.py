@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two self-play paths, its training loop, its
-evaluation and play CLIs and the row-take probe on one CUDA card and check
-them.
+"""Drive the PyTorch port's two self-play paths, its training loop (on one
+card and as the mesh train step), its evaluation and play CLIs and the
+row-take probe on one CUDA card and check them.
 
 Run from the repository root, on a machine with one NVIDIA H100:
 
@@ -25,7 +25,11 @@ port of the TPU probe kernels P1-P3. Path 7 is the evaluate CLI's matches
 games, 400 steps), whose merged legal moves run nd_tail at K = 576; path 8
 the play CLI at batch 1; path 9 the trajectory-parity games
 (``scripts.trajectory_parity``) through the sorted engine, whose row takes
-run the redesigned take_rows. Phases, in order; any failure exits non-zero:
+run the redesigned take_rows; path 10 the mesh train step
+(``parallel.sharding.make_train_step``) through the training CLI with
+--fused-rollout on a one-rank NCCL group, and on two gloo ranks sharing the
+card (``scripts.multiprocess_distributed``). Phases, in order; any failure
+exits non-zero:
 
 1. device: torch's view of the card and nvidia-smi's name and power limit;
 2. build: one nvcc per kernel source, started together (seconds,
@@ -132,6 +136,21 @@ run the redesigned take_rows. Phases, in order; any failure exits non-zero:
     games of ``artifacts/traj_jax_4096.jsonl`` on the card: 4096/4096 hashes
     equal, the transcript sha256 of ``artifacts/trajectory_parity.json``,
     its wall seconds, and exactly 8 take_rows launches a decision;
+29. the mesh train step: (a) ``apps.train.main`` with --production
+    --fused-rollout --data 1 --model 1 (B = 4096, 3 updates of 64 steps) on
+    a one-rank NCCL group: 3 finite metrics lines with JAX's mesh keys,
+    exactly 2 x 64 fused_value launches an update, the first update equal
+    to the single-card loop's from the same state, games and generator
+    (integer trajectory bit-equal, params at phase 15's tolerances), its ms
+    an update beside phase 16's, the update's ms and its all-reduces' (each
+    timed with the device synchronised around it); (b) two gloo ranks on card 0
+    (``scripts/multiprocess_distributed.py --device cuda``): a (2, 1) mesh
+    at B = 4096 against one rank on the same games and noise, and a (1, 2)
+    tp update at B = 1024 against the update without tp and JAX's tp rule;
+    (c) ``--remote-dir`` exits 2 naming fsspec where fsspec does not
+    import; (d) the ring buffer's pushes and samples on the card with no
+    host sync, a push replayed in a CUDA graph, and ``profiling.profile``
+    around a graphed rollout within 10% of CUDA events;
 
 then the kernels line (launches summed over every path's timed run) and the
 result line. Phases 4, 7, 10 and 13 time the eager step; the training runs
@@ -219,6 +238,15 @@ B_SORTED = 4096  # and one decision timed, the trajectory's games
 SORTED_TAKES_PER_DECISION = 8
 TRAJ_HASHES = ROOT / "artifacts" / "traj_jax_4096.jsonl"
 TRAJ_PARITY = ROOT / "artifacts" / "trajectory_parity.json"
+# phase 29: the mesh train step
+TRAIN_MESH = ["--production", "--fused-rollout", "--data", "1", "--model", "1",
+              "--mode", "continuous", "--td-mode", "side0", "--batch-games", str(B_PROD),
+              "--steps-per-update", "64", "--updates", "3"]
+MESH_KEYS = {"loss", "grad_norm", "td_abs", "v_mean", "episodes_done", "env_steps",
+             "wins_regular", "wins_gammon", "wins_backgammon", "close_out_count",
+             "prime_count", "reward_sum", "width_overflow_count"}
+MPD_ARGS = ["--device", "cuda", "--widths", "full", "--batch", "4096", "--tp-batch", "1024",
+            "--steps", "16", "--updates", "3"]
 
 
 def log(*args) -> None:
@@ -251,8 +279,14 @@ def _port():
     from mlp_ppo_2ply_multi_tpu_torch.scripts import probe_take
     from mlp_ppo_2ply_multi_tpu_torch.engine import movegen
     from mlp_ppo_2ply_multi_tpu_torch.scripts import trajectory_parity
+    from mlp_ppo_2ply_multi_tpu_torch.parallel import distributed, sharding
+    from mlp_ppo_2ply_multi_tpu_torch.utils import profiling, ring_buffer
+    from mlp_ppo_2ply_multi_tpu_torch.scripts import multiprocess_distributed
+    from mlp_ppo_2ply_multi_tpu_torch.io import remote
 
     return dict(
+        sharding=sharding, distributed=distributed, profiling=profiling, ring=ring_buffer,
+        mpd=multiprocess_distributed, remote=remote,
         rollout=rollout, Config=Config, board=board,
         movegen2=movegen2, vec_env=vec_env, value_net=value_net,
         fv=fused_value, nd=nd_tail, X=expectimax, td=td, train=train, ckpt=checkpoint,
@@ -1998,6 +2032,257 @@ def phase_sorted_engine(P, dev, card):
                 peak_gib=peak / 2**30, **result)
 
 
+# ---------------------------------------------------------------------------
+# the mesh train step
+# ---------------------------------------------------------------------------
+
+
+def _first_step_recorder(P, kept):
+    """``sharding.make_train_step`` whose step keeps, at its first call, what
+    the single-card loop needs to redo that update (the config, the state,
+    the games, the generator's state), the trajectory it rolled and the
+    state after it."""
+    S, real_make = P["sharding"], P["sharding"].make_train_step
+
+    def make(mesh, cfg, num_steps, tp=False):
+        step = real_make(mesh, cfg, num_steps, tp=tp)
+
+        def first(state, env_state, gen=None, noise=None):
+            if kept:
+                return step(state, env_state, gen, noise)
+            dev = state.params["w1"].device
+            kept.update(cfg=S._tp_config(cfg, tp), steps=num_steps, gen=gen.get_state(),
+                        state=_clone_state(P, state, dev),
+                        env=P["tree"].tmap(torch.clone, env_state))
+            trajs = []
+            untap = P["mpd"]._tap(trajs)
+            try:
+                out = step(state, env_state, gen, noise)
+            finally:
+                untap()
+            kept.update(traj=trajs[0], after=_clone_state(P, out[0], dev))
+            return out
+        return first
+    return make
+
+
+def phase_mesh_cli(P, dev, card, train1):
+    """29a: ``apps.train.main`` with --production --fused-rollout --data 1
+    --model 1 at B = 4096, 3 updates of 64 steps, in-process on a one-rank
+    NCCL group: 3 finite metrics lines with JAX's mesh keys, exactly 2 x 64
+    fused_value launches an update (by replay), and the first update redone
+    by the single-card loop (``rollout_chunked`` + ``td.update``) from the
+    same state, games and generator: the integer trajectory bit-equal,
+    params and Adam's moments at phase 15's tolerances."""
+    R, td, S = P["rollout"], P["td"], P["sharding"]
+    kept, update_ms, reduce_ms, reduce_by_update = {}, [], [], []
+    timed_update = _synced_timer(S._update, update_ms, dev)
+
+    def update(*args, **kwargs):  # the update's all-reduces, summed
+        start = len(reduce_ms)
+        out = timed_update(*args, **kwargs)
+        reduce_by_update.append(sum(reduce_ms[start:]))
+        return out
+
+    with _Swap(S, "make_train_step", _first_step_recorder(P, kept)), \
+            _Swap(S, "_update", update), \
+            _Swap(S, "_all_reduce", _synced_timer(S._all_reduce, reduce_ms, dev)):
+        stats, lines, _, _ = run_train(P, TRAIN_MESH, dev, "[29 mesh]", card)
+    if torch.distributed.is_initialized():
+        raise AssertionError("[29 mesh] the CLI left its process group behind")
+    steps = 64 * stats["updates"]
+    if stats["updates"] != 3:
+        raise AssertionError(f"[29 mesh] {stats['updates']} metrics lines")
+    for ln in lines:
+        if not MESH_KEYS <= set(ln) or not all(math.isfinite(v) for v in ln.values()):
+            raise AssertionError(f"[29 mesh] metrics line {ln}")
+    if stats["launches"]["fused_value"] != 2 * steps:
+        raise AssertionError(f"[29 mesh] fused_value launched {stats['launches']}")
+    cfg = kept["cfg"]
+    gen = torch.Generator(device=dev)
+    gen.set_state(kept["gen"])
+    start = kept["state"]
+    temp = td.temperature(start.version, cfg)
+    _, traj = R.rollout_chunked(start.params, kept["env"], temp, cfg, kept["steps"], chunk=4,
+                                gen=gen, device=dev)
+    for f in P["mpd"].EXACT_FIELDS:
+        if not torch.equal(getattr(traj, f), getattr(kept["traj"], f)):
+            raise AssertionError(f"[29 mesh] trajectory field {f}: mesh step vs single loop")
+    single, _ = td.update(start, traj, cfg, dev)
+    err = compare_states(kept["after"], single, "[29 mesh] mesh step vs single loop")
+    P["graphs"].clear_graphs()
+    n = stats["updates"]
+    out = dict(updates=n, launches=stats["launches"],
+               ms_per_update=stats["ms_per_update"],
+               update_ms=update_ms, all_reduces_per_update=len(reduce_ms) / n,
+               # the first update's first all-reduce sets up NCCL's communicator
+               all_reduce_ms_by_update=reduce_by_update,
+               env_steps_per_s=B_PROD * 64 / (stats["ms_per_update"] / 1e3),
+               phase16_ms_per_update=train1["ms_per_update"], rollout_ms=stats["rollout_ms"],
+               wall_s=stats["wall_s"], peak_mem_gib=stats["peak_mem_gib"],
+               loss=stats["loss"], first_update_vs_single=err)
+    log(f"[29 mesh] CLI at 1 x 1 on NCCL: {json.dumps(out)} {card}")
+    return out
+
+
+def _synced_timer(fn, into, dev):
+    """``fn`` with the device synchronised before and after each call, its
+    ms appended to ``into``."""
+    def run(*args, **kwargs):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        _sync(dev)
+        into.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
+def compare_states(a, b, what):
+    """Params within PARAM_ATOL, Adam's moments at phase 15's tolerances,
+    version and Adam count equal. Returns the largest errors."""
+    err = {"params_abs": max(float((a.params[k] - b.params[k]).abs().max()) for k in b.params)}
+    if err["params_abs"] > PARAM_ATOL:
+        raise AssertionError(f"{what}: params differ by {err['params_abs']}")
+    for name in ("mu", "nu"):
+        for k in b.params:
+            x, y = getattr(a.opt_state, name)[k], getattr(b.opt_state, name)[k]
+            lim = MOMENT_RTOL * y.abs() + MOMENT_FLOOR * float(y.abs().max())
+            if not bool(((x - y).abs() <= lim).all()):
+                raise AssertionError(f"{what}: Adam {name} {k} differs")
+        err[f"{name}_abs"] = max(float((getattr(a.opt_state, name)[k]
+                                        - getattr(b.opt_state, name)[k]).abs().max())
+                                 for k in b.params)
+    if int(a.version) != int(b.version) or int(a.opt_state.count) != int(b.opt_state.count):
+        raise AssertionError(f"{what}: counters differ")
+    return err
+
+
+def phase_mesh_world2(card):
+    """29b: ``scripts/multiprocess_distributed.py --device cuda``: two gloo
+    ranks on card 0 run make_train_step on a (2, 1) mesh at a global
+    B = 4096 (``Config()``, f32, 3 updates of 16 steps) against one rank on
+    the same games and injected noise, then a (1, 2) tp update at
+    B = 1024 against the update without tp and JAX's tp rule. Exit 0 and
+    its result line, or the phase fails."""
+    cmd = [sys.executable, "-m", "mlp_ppo_2ply_multi_tpu_torch.scripts.multiprocess_distributed",
+           *MPD_ARGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    lines = [x for x in proc.stdout.splitlines() if x.startswith("{")]
+    if proc.returncode != 0 or not lines or not json.loads(lines[-1]).get("ok"):
+        raise AssertionError(f"[29 mesh world 2] exit {proc.returncode}: {proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    log(f"[29 mesh world 2] gloo ranks on cuda:0 vs one rank, {wall:.1f} s: "
+        f"{json.dumps(res)} {card}")
+    return dict(res, wall_s=wall)
+
+
+def phase_remote_refusal(P, card):
+    """29c: ``apps.train --remote-dir memory://x`` exits 2 naming fsspec
+    where fsspec does not import (made unimportable for the call, whether
+    or not this machine has it), before it writes anything."""
+    native = P["remote"].available()
+    err = io.StringIO()
+    saved = sys.modules.get("fsspec")
+    sys.modules["fsspec"] = None
+    code = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stderr(err):
+            try:
+                P["train"].main(["--device", "cuda", "--remote-dir", "memory://x",
+                                 "--checkpoint-dir", f"{tmp}/ck", "--metrics-dir",
+                                 f"{tmp}/runs"])
+            except SystemExit as e:
+                code = e.code
+            wrote = Path(tmp, "runs").exists()
+    finally:
+        if saved is None:
+            del sys.modules["fsspec"]
+        else:
+            sys.modules["fsspec"] = saved
+    msg = err.getvalue().strip().splitlines()[-1]
+    if code != 2 or "fsspec" not in msg or wrote:
+        raise AssertionError(f"[29 remote] exit {code}, wrote {wrote}: {msg}")
+    log(f"[29 remote] --remote-dir without fsspec: exit 2, {msg!r} (fsspec here: {native}) {card}")
+
+
+def phase_ring_and_profile(P, dev, gen, card):
+    """29d: the ring buffer on the card (10 pushes of [4096, 52] boards and
+    values into 8 slots and 64 samples by a CUDA generator, under
+    sync-debug "error"; a push captured in a CUDA graph and replayed), and
+    ``profiling.profile`` around a graphed 1-ply rollout (16 steps, chunk
+    4, B = 4096), whose time agrees with CUDA events within 10%."""
+    RB, PR, R = P["ring"], P["profiling"], P["rollout"]
+    mk = lambda: {"boards": torch.randint(0, 16, (B_PROD, 52), generator=gen, device=dev
+                                          ).to(torch.int8),
+                  "value": torch.rand(B_PROD, generator=gen, device=dev)}
+    slices = [mk() for _ in range(10)]
+    ring = RB.init(slices[0], 8)
+    _sync(dev)
+    with syncs_raise(dev):
+        for sl in slices:
+            RB.push(ring, sl)
+        idx = RB.sample_indices(ring, gen, 64)
+        got = RB.take(ring, idx)
+    _sync(dev)
+    held = {i % 8: sl for i, sl in enumerate(slices)}
+    ok = int(ring.cursor) == 2 and int(ring.filled) == 8 and all(
+        torch.equal(ring.store[k][i], sl[k]) for i, sl in held.items() for k in sl)
+    ok = ok and bool(((idx >= 0) & (idx < 8)).all()) and all(
+        torch.equal(got[k], ring.store[k][idx]) for k in got)
+    ring2 = RB.init(slices[0], 4)
+    static = {k: v.clone() for k, v in slices[0].items()}
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        RB.push(ring2, static)  # the warm-up runs: cursor 1
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        RB.push(ring2, static)
+    for _ in range(3):
+        graph.replay()
+    _sync(dev)
+    ok = ok and int(ring2.cursor) == 0 and int(ring2.filled) == 4
+    if not ok:
+        raise AssertionError("[29 ring] pushes, samples or the graphed push are wrong")
+    del slices, ring, ring2, graph
+
+    cfg = production_config(P)
+    params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
+    state = P["vec_env"].reset(B_PROD, gen, device=dev)
+
+    def graphed_rollout():
+        return R.rollout_chunked(params, state, 1.0, cfg, 16, chunk=4, gen=gen, device=dev)
+
+    timed = PR.profile(graphed_rollout)
+    timed()  # captures the graph
+    name = graphed_rollout.__qualname__
+    pairs = []
+    for _ in range(5):
+        before = PR.profiling_data[name]["total_s"]
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        timed()
+        e1.record()
+        _sync(dev)
+        pairs.append(((PR.profiling_data[name]["total_s"] - before) * 1e3, e0.elapsed_time(e1)))
+    prof_ms, ev_ms = sorted(pairs)[2]
+    ops = PR.device_op_times(graphed_rollout)
+    P["graphs"].clear_graphs()
+    out = dict(profile_ms=prof_ms, events_ms=ev_ms, rel=abs(prof_ms - ev_ms) / ev_ms,
+               pairs_ms=pairs, device_ops=len(ops), device_ms=sum(ops.values()),
+               top_ops={k[:60]: v for k, v in list(ops.items())[:5]})
+    log(f"[29 ring] ring buffer: 10 pushes, 64 samples, no host sync; a push captured "
+        f"and replayed 3 times; profile vs events: {json.dumps(out)} {card}")
+    if out["rel"] > 0.10:
+        raise AssertionError(f"[29 ring] profile {prof_ms:.3f} ms vs events {ev_ms:.3f} ms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
@@ -2081,6 +2366,10 @@ def main() -> int:
     cli = phase_evaluate_cli(P, dev, card)
     phase_play_cli(card)
     srt = phase_sorted_engine(P, dev, card)
+    mesh = phase_mesh_cli(P, dev, card, train1)
+    phase_mesh_world2(card)
+    phase_remote_refusal(P, card)
+    phase_ring_and_profile(P, dev, gen, card)
     eval_nd = ev["launches"] + cli["launches"]
     nd576 = ev["nd_tail_k576"]
     probe = take_rows["probe"]
@@ -2093,7 +2382,8 @@ def main() -> int:
             "replaces": KERNEL_REPLACES,
             # every path's timed run, each counted from 0 just before it
             "launches": stats["fused_value_launches"] + stats2["fused_value_launches"]
-            + sum(t["launches"]["fused_value"] for t in trains.values()) + graph_fv,
+            + sum(t["launches"]["fused_value"] for t in trains.values()) + graph_fv
+            + mesh["launches"]["fused_value"],
             "max_abs_err": max(max_err, fv2_err),
             # one 1-ply production step's two launches (tier 1 + tier 2), summed;
             # ms is their device time with the launches queued ahead of the card
@@ -2107,6 +2397,8 @@ def main() -> int:
                 "2ply": {"launches": stats2["fused_value_launches"], **fv2_step},
                 **{k: {"launches": t["launches"]["fused_value"]} for k, t in trains.items()},
                 "graphs": {"launches": graph_fv},
+                # phase 29a: the mesh train step at 1 x 1 through the CLI
+                "train_mesh": {"launches": mesh["launches"]["fused_value"]},
             },
             "ok": True,
         },

@@ -469,10 +469,10 @@ def rollout_loop(
 Noise = Union[StepNoise, TwoPlyNoise]
 
 
-def _run_chunk(params, state, temperature, cfg: Config, continuous: bool,
-               noises: Sequence[Noise], dev: torch.device):
-    """``len(noises)`` steps; returns the final state and their [chunk, B]
-    transition stack."""
+def run_steps(params, state, temperature, cfg: Config, continuous: bool,
+              noises: Sequence[Noise], dev: torch.device):
+    """``len(noises)`` eager steps, one for each noise; returns the final
+    state and their [len(noises), B] transition stack."""
     ts = []
     for nz in noises:
         state, t = rollout_step(params, state, temperature, cfg, continuous, noise=nz,
@@ -501,13 +501,13 @@ class ChunkGraph:
         with torch.cuda.stream(stream):
             self.temp = _temperature(temperature, dev).clone()
             with syncs_raise():
-                state, traj = _run_chunk(params, state, self.temp, cfg, continuous, noises, dev)
+                state, traj = run_steps(params, state, self.temp, cfg, continuous, noises, dev)
             self.state = tmap(torch.clone, state)
             self.noise = [tmap(torch.clone, nz) for nz in noises]
         self.warmup: Optional[Transition] = traj
 
         def body() -> None:
-            st, self.traj = _run_chunk(
+            st, self.traj = run_steps(
                 params, self.state, self.temp, cfg, continuous, self.noise, dev)
             copy_into(self.state, st)
 
@@ -597,7 +597,7 @@ def rollout_chunked(
     n_chunks = num_steps // chunk
     if dev.type != "cuda":
         for c in range(n_chunks):
-            state, traj = _run_chunk(params, state, temperature, cfg, continuous,
+            state, traj = run_steps(params, state, temperature, cfg, continuous,
                                      chunk_noise(c), dev)
             keep(c, traj)
         return state, Transition(*out)

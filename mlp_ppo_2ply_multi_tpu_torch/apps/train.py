@@ -1,4 +1,5 @@
-"""Training CLI: on-device self-play and TD(0) updates on one card.
+"""Training CLI: on-device self-play and TD(0) updates, on one card or a
+{data, model} mesh of ranks.
 
 Port of ``mlp_ppo_2ply_multi_tpu/apps/train.py``. Two rollout modes
 (TrainConfig.rollout_mode):
@@ -7,7 +8,9 @@ Port of ``mlp_ppo_2ply_multi_tpu/apps/train.py``. Two rollout modes
     completion (or the 300-step cap, Q9), then update. With
     --per-episode-updates one Adam step per episode (Q2).
   * ``continuous`` — finished games auto-reset, so every lockstep step does
-    useful work; a fused update every --steps-per-update steps.
+    useful work; a fused update every --steps-per-update steps. With
+    --data/--model above 1 (or --fused-rollout at 1 x 1) it runs the mesh
+    train step of ``parallel.sharding`` (``train_continuous``).
 
 The rollouts are the JAX CLI's: ``actor.rollout_chunked`` in continuous
 mode (chunk 4 where 4 divides --steps-per-update, else 1) and
@@ -19,13 +22,25 @@ Randomness comes from one ``torch.Generator`` on the device, seeded with
 keep its state. Each update makes one host pull: its metrics, the episode
 counters and the temperature packed into one vector (``td.pack_metrics``).
 
-Flags the port does not serve exit with status 2 and name the ROADMAP item:
---data/--model above 1 and --fused-rollout (A15), --tiered (A16) and
---remote-dir (A15).
+Mesh runs: one process per rank, started by torchrun; the process group
+is NCCL on cards and gloo with --device cpu. --data defaults to the world
+size / --model. Each data index draws its rollout noise from its own
+generator, seeded from (--seed, data index, the start version); the ranks
+of one model group share it. Rank 0 alone writes metrics and checkpoints,
+after gathering the model shards under tp. --fused-rollout at 1 x 1 runs
+the mesh step on a one-rank group. --remote-dir mirrors runs/ and
+checkpoints/ through fsspec.
+
+Exit status 2, with the reason: --tiered (not ported, ROADMAP A16);
+--model above 1 with the fused actor kernel (--production: the kernel
+scores the full hidden layer, ROADMAP §C); a world size other than
+--data x --model; --remote-dir where fsspec does not import.
 
 Usage:
     python -m mlp_ppo_2ply_multi_tpu_torch.apps.train --production \\
         --mode continuous --batch-games 4096 --updates 1000 [--device cpu]
+    torchrun --nproc-per-node 2 -m mlp_ppo_2ply_multi_tpu_torch.apps.train \\
+        --device cpu --data 2 --small-movegen --batch-games 16 --updates 3
 """
 from __future__ import annotations
 
@@ -48,12 +63,11 @@ from mlp_ppo_2ply_multi_tpu_torch.core.config import (
 from mlp_ppo_2ply_multi_tpu_torch.core.device import resolve_device
 from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
 from mlp_ppo_2ply_multi_tpu_torch.io import checkpoint as ckpt
-from mlp_ppo_2ply_multi_tpu_torch.io.metrics import (
-    MetricsWriter,
-    Throughput,
-    device_memory_stats,
-)
+from mlp_ppo_2ply_multi_tpu_torch.io import remote
+from mlp_ppo_2ply_multi_tpu_torch.io.metrics import MetricsWriter, Throughput
 from mlp_ppo_2ply_multi_tpu_torch.learner import td
+from mlp_ppo_2ply_multi_tpu_torch.parallel import distributed, sharding
+from mlp_ppo_2ply_multi_tpu_torch.utils.profiling import device_memory_stats
 
 _STOP = False
 
@@ -100,24 +114,39 @@ def build_config(args) -> Config:
 
 
 def _record(u, state, gen, metrics, temp, env_steps, cfg, args, writer, tput, last_saved,
-            dev, memory):
+            dev, memory, full_state=None):
     """Write one update's metrics (one host pull), histograms and, when due,
-    a checkpoint; returns the episode count of the last checkpoint."""
+    a checkpoint; returns the episode count of the last checkpoint.
+
+    ``env_steps`` None: the mesh step's metrics, which carry JAX's
+    ``episodes_done`` and ``env_steps`` keys (and no temperature). Only a
+    rank with a ``writer`` writes; ``full_state(state)`` (every rank calls
+    it, a collective under tp) gives what histograms and checkpoints hold."""
     metrics["episode_count"] = state.episode_count
-    metrics["temperature"] = temp
+    if temp is not None:
+        metrics["temperature"] = temp
     names, vec = td.pack_metrics(metrics)
     vals = dict(zip(names, vec.tolist()))
     ec = int(vals.pop("episode_count"))
-    eps = int(vals.pop("episodes_done", cfg.train.batch_games))
+    if env_steps is None:
+        eps, env_steps = int(vals["episodes_done"]), int(vals["env_steps"])
+    else:
+        eps = int(vals.pop("episodes_done", cfg.train.batch_games))
     tput.add(episodes=eps, env_steps=env_steps)
     logged = u % max(1, args.log_every) == 0
+    hist = bool(args.histograms_every) and u % args.histograms_every == 0
+    save = ec - last_saved >= cfg.train.checkpoint_every_episodes
+    full = full_state(state) if full_state is not None and (hist or save) else state
+    if save:
+        last_saved = ec
+    if writer is None:
+        return last_saved
     mem = device_memory_stats(dev) if memory and logged else {}
     writer.scalars(ec, {**vals, **tput.rates(), **mem})
-    if args.histograms_every and u % args.histograms_every == 0:
-        writer.param_histograms(ec, state.params)
-    if ec - last_saved >= cfg.train.checkpoint_every_episodes:
-        ckpt.save(cfg.train.checkpoint_dir, state, gen)
-        last_saved = ec
+    if hist:
+        writer.param_histograms(ec, full.params)
+    if save:
+        ckpt.save(cfg.train.checkpoint_dir, full, gen)
     if logged:
         r = tput.rates()
         print(f"update {u} episodes {ec} loss {vals['loss']:.5f} "
@@ -192,6 +221,39 @@ def train_continuous_single(cfg: Config, args, writer: MetricsWriter, dev: torch
     return state, gen
 
 
+def train_continuous(cfg: Config, args, writer: MetricsWriter, dev: torch.device):
+    """Continuous training over a {data, model} mesh of every rank (JAX
+    ``train_continuous``); at 1 x 1 without --fused-rollout, the single-card
+    pipeline. Every rank makes the same start (params and the global batch
+    from --seed), keeps its shard (``shard_train_state``,
+    ``shard_env_state``) and runs ``sharding.make_train_step``. A resume
+    restores the full state and shards it; the games are re-created. The
+    checkpoint keeps rank 0's rollout generator, and a resumed rank seeds
+    its own from the restored version. Returns (full state, generator)."""
+    if args.data == 1 and args.model == 1 and not args.fused_rollout:
+        return train_continuous_single(cfg, args, writer, dev)
+    tp = args.model > 1
+    mesh = distributed.global_mesh(args.model)
+    gen0, state = _start(cfg, dev)
+    env_state = vec_env.reset(cfg.train.batch_games, gen0, dev)
+    if args.resume:
+        state = _resume(cfg, gen0, dev)
+    state = sharding.shard_train_state(state, mesh, tp)
+    env_state = sharding.shard_env_state(env_state, mesh)
+    gen = sharding.data_generator(mesh, cfg.train.seed, dev, start=int(state.version))
+    step = sharding.make_train_step(mesh, cfg, args.steps_per_update, tp=tp)
+    full = lambda s: sharding.gather_train_state(s, mesh, tp) if tp else s
+    tput = Throughput()
+    last_saved = int(state.episode_count)
+    for u in range(args.updates):
+        if _STOP:
+            break
+        state, env_state, metrics = step(state, env_state, gen)
+        last_saved = _record(u, state, gen, metrics, None, None, cfg, args, writer, tput,
+                             last_saved, dev, memory=True, full_state=full)
+    return full(state), gen
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -206,8 +268,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="TD semantics (RESULTS.md): reference = Q3 parity; "
                          "side0 = TD-Gammon fix (side-0 value, side 1 "
                          "minimizes); negamax kept as a negative result")
-    ap.add_argument("--data", type=int, default=1, help="not ported above 1 (ROADMAP A15)")
-    ap.add_argument("--model", type=int, default=1, help="not ported above 1 (ROADMAP A15)")
+    ap.add_argument("--data", type=int, default=None,
+                    help="data-axis mesh size (default: world size / --model)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="model-axis mesh size: tensor parallelism of the hidden "
+                         "layer (not with --production)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--checkpoint-dir", default="checkpoints")
@@ -230,12 +295,14 @@ def _parser() -> argparse.ArgumentParser:
                     help="with --production: keep the full parity movegen "
                          "widths (fast-vs-full quality control arm)")
     ap.add_argument("--fused-rollout", action="store_true",
-                    help="the JAX package's fused mesh train step: not ported "
-                         "(ROADMAP A15)")
+                    help="continuous mode at 1 x 1: the mesh train step on a "
+                         "one-rank process group instead of the single-card "
+                         "pipeline")
     ap.add_argument("--two-ply", action="store_true",
                     help="self-play with the 2-ply expectimax rerank policy")
     ap.add_argument("--remote-dir", default=None,
-                    help="fsspec mirror: not ported (ROADMAP A15)")
+                    help="fsspec URI (gs://..., memory://...) mirrored with "
+                         "metrics and checkpoints; needs fsspec")
     ap.add_argument("--max-timesteps", type=int, default=None,
                     help="override episode step cap (default 300, Q9)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -243,15 +310,18 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _unported(args):
-    if args.data > 1 or args.model > 1:
-        return "--data/--model above 1 are not ported (ROADMAP A15)"
-    if args.fused_rollout:
-        return "--fused-rollout is not ported (ROADMAP A15)"
+def _refused(args, cfg: Config, world: int):
+    """Why this run is refused (exit status 2), or None."""
     if args.tiered:
         return "--tiered is not ported (ROADMAP A16)"
-    if args.remote_dir:
-        return "--remote-dir is not ported (ROADMAP A15)"
+    if args.model > 1 and cfg.model.fused_actor_kernel:
+        return ("--model above 1 with the fused actor kernel (--production) is refused: "
+                "the kernel scores the full hidden layer (ROADMAP §C)")
+    if args.data * args.model != world:
+        return (f"--data {args.data} x --model {args.model} needs {args.data * args.model} "
+                f"ranks; the world has {world} (start ranks with torchrun)")
+    if args.remote_dir and not remote.available():
+        return "--remote-dir needs fsspec, which does not import here"
     return None
 
 
@@ -259,25 +329,45 @@ def main(argv=None) -> int:
     global _STOP
     ap = _parser()
     args = ap.parse_args(argv)
-    refused = _unported(args)
-    if refused:
-        ap.error(refused)
-    dev = resolve_device(args.device)
+    world = distributed.world_size()
+    if args.data is None:
+        args.data = max(1, world // args.model)
+    if args.two_ply and args.mode == "continuous":
+        args.fused_rollout = False  # as JAX: the 2-ply step's path is the chunked loop
     if args.histograms_every is None:
         args.histograms_every = 1 if args.mode == "sync" else 10
     cfg = build_config(args)
+    refused = _refused(args, cfg, world)
+    if refused:
+        ap.error(refused)
+    dev = distributed.local_device(resolve_device(args.device))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh_run = args.mode == "continuous" and (world > 1 or args.fused_rollout)
+    made_group = distributed.init(device=dev, world_size=world) if mesh_run else False
     _STOP = False
     previous = {s: signal.signal(s, _request_stop) for s in (signal.SIGTERM, signal.SIGINT)}
-    writer = MetricsWriter(cfg.train.metrics_dir)
+    coordinator = distributed.is_coordinator()
+    rem = args.remote_dir.rstrip("/") if args.remote_dir else None
+    writer = None
     t0 = time.time()
     try:
-        train = train_sync if args.mode == "sync" else train_continuous_single
+        if coordinator:
+            writer = MetricsWriter(cfg.train.metrics_dir,
+                                   remote_uri=f"{rem}/runs" if rem else None)
+        train = train_sync if args.mode == "sync" else train_continuous
         state, gen = train(cfg, args, writer, dev)
-        ckpt.save(cfg.train.checkpoint_dir, state, gen)
+        if coordinator:
+            ckpt.save(cfg.train.checkpoint_dir, state, gen)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
         for s, h in previous.items():
             signal.signal(s, h)
+        if made_group:
+            distributed.shutdown()
+    if coordinator and rem:
+        remote.sync_dir(cfg.train.checkpoint_dir, f"{rem}/checkpoints")
     print(f"done: {int(state.episode_count)} episodes, "
           f"{int(state.version)} updates in {time.time() - t0:.1f}s")
     return 0

@@ -3,9 +3,10 @@
 Port of ``mlp_ppo_2ply_multi_tpu/io/metrics.py``: the reference trainer's
 metric set (trainer.py:186-228) with the Q4/Q14 corrections of SURVEY.md
 §7.1 (true shaping counts, true eps/sec). The local JSONL file is the
-contract. The fsspec mirror (``--remote-dir``) is not ported (ROADMAP A15).
-``device_memory_stats`` is the counterpart of the JAX package's
-``utils/profiling.py`` function, read from ``torch.cuda``.
+contract; with ``remote_uri`` the run directory is mirrored through fsspec
+(``io/remote.py``, rate-limited, failures swallowed), the reference's
+S3-streaming logger (logger.py:9-56). ``device_memory_stats`` lives in
+``utils/profiling.py``, as in the JAX package, and is re-exported here.
 """
 from __future__ import annotations
 
@@ -17,9 +18,17 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from mlp_ppo_2ply_multi_tpu_torch.io.remote import RemoteMirror
+from mlp_ppo_2ply_multi_tpu_torch.utils.profiling import device_memory_stats  # noqa: F401
+
 
 class MetricsWriter:
-    def __init__(self, logdir: str, run_name: Optional[str] = None):
+    def __init__(
+        self,
+        logdir: str,
+        run_name: Optional[str] = None,
+        remote_uri: Optional[str] = None,
+    ):
         ts = time.strftime("%Y%m%d-%H%M%S")
         self.run_dir = os.path.join(logdir, run_name or f"bg_td_{ts}")
         os.makedirs(self.run_dir, exist_ok=True)
@@ -32,6 +41,7 @@ class MetricsWriter:
         else:
             self._tb = SummaryWriter(logdir=self.run_dir)
         self._t0 = time.time()
+        self._mirror = RemoteMirror(self.run_dir, remote_uri) if remote_uri else None
 
     def scalars(self, step: int, values: Dict[str, float]) -> None:
         rec = {"step": int(step), "t": round(time.time() - self._t0, 3)}
@@ -41,6 +51,8 @@ class MetricsWriter:
         if self._tb is not None:
             for k, v in values.items():
                 self._tb.add_scalar(k, float(v), step)
+        if self._mirror is not None:
+            self._mirror.maybe_sync()
 
     def histogram(self, step: int, name: str, values) -> None:
         if isinstance(values, torch.Tensor):
@@ -73,6 +85,8 @@ class MetricsWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+        if self._mirror is not None:
+            self._mirror.close()
 
 
 class Throughput:
@@ -95,19 +109,3 @@ class Throughput:
             "env_steps_per_sec": self.env_steps / dt,
         }
 
-
-def device_memory_stats(device=None) -> Dict[str, float]:
-    """Device memory of one card in MB (the reference's NVML prints around
-    each update, trainer.py:54-62,170-184), under the JAX package's keys:
-    ``hbm_used_mb`` (allocated by tensors now), ``hbm_limit_mb`` (the card's
-    total memory) and ``hbm_peak_mb`` (the most allocated since the last
-    reset of the peak). {} for a CPU device."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type != "cuda":
-        return {}
-    mb = 1.0 / (1024 * 1024)
-    return {
-        "hbm_used_mb": torch.cuda.memory_allocated(dev) * mb,
-        "hbm_limit_mb": torch.cuda.get_device_properties(dev).total_memory * mb,
-        "hbm_peak_mb": torch.cuda.max_memory_allocated(dev) * mb,
-    }

@@ -272,6 +272,15 @@ def _grads(params: Params, obs, recorded, plan: _Plan, cfg: Config):
     return loss.detach(), aux, dict(zip(keys, gs))
 
 
+def loss_and_grads(params: Params, obs: torch.Tensor, traj: Transition, cfg: Config):
+    """(loss, aux, grads by key) of ``episode_loss_and_metrics`` on ``obs``
+    (``encode_traj(traj, cfg)``) and the trajectory: JAX's
+    ``value_and_grad(..., has_aux=True)``. ``params`` are not changed."""
+    plan = _plan(traj.reward, traj.recorded, traj.boundary, cfg.train.gamma,
+                 cfg.train.td_mode, traj.player)
+    return _grads(params, obs, traj.recorded, plan, cfg)
+
+
 def encode_traj(traj: Transition, cfg: Config) -> torch.Tensor:
     return encode_board(unpack_board(traj.packed_board), traj.player)
 

@@ -59,9 +59,12 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
     Reference policy_network.py:53-70: sigmoid hidden, linear head. With
     ``cfg.dtype == "bfloat16"`` the operands of both products are rounded to
-    bf16 and the products accumulate in float32, as in JAX."""
-    if cfg.model_axis is not None:
-        raise NotImplementedError("tensor-parallel value net is not ported")
+    bf16 and the products accumulate in float32, as in JAX.
+
+    Tensor-parallel mode (``cfg.model_axis`` set, on a mesh of
+    ``parallel.sharding``): w1/b1 hold a column shard and w2 a row shard,
+    so the head's partial sum is all-reduced over the axis's group before
+    ``b2`` is added (``sharding.psum``, whose gradient is JAX's)."""
     w1, w2 = params["w1"].float(), params["w2"].float()
     x = x.float()
     if cfg.dtype == "bfloat16":
@@ -69,7 +72,12 @@ def forward(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = torch.sigmoid(x @ w1 + params["b1"].float())
     if cfg.dtype == "bfloat16":
         h = _round_bf16(h)
-    return (h @ w2 + params["b2"].float()).squeeze(-1)
+    v = h @ w2
+    if cfg.model_axis is not None:
+        from mlp_ppo_2ply_multi_tpu_torch.parallel import sharding
+
+        v = sharding.psum(v, cfg.model_axis)
+    return (v + params["b2"].float()).squeeze(-1)
 
 
 def forward_np(params, x: np.ndarray) -> np.ndarray:

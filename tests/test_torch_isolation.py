@@ -44,8 +44,9 @@ def test_isolation_covers_every_port_module():
     modules, both kernels' wrappers, the learner, checkpoints, metrics and
     the training CLI, the row-take kernel and its probe, the oracle copies,
     the arena and the evaluate and play CLIs, the graph cache they share,
-    and the sorted engine (its hashes, dedup and takes) with its trajectory
-    script are among them."""
+    the sorted engine (its hashes, dedup and takes) with its trajectory
+    script, the ring buffer, profiling, the fsspec mirror and the mesh
+    (distributed, sharding and their multi-process script) are among them."""
     for m in (
         "mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax",
         "mlp_ppo_2ply_multi_tpu_torch.experimental.nd_tail",
@@ -70,6 +71,12 @@ def test_isolation_covers_every_port_module():
         "mlp_ppo_2ply_multi_tpu_torch.engine.board",
         "mlp_ppo_2ply_multi_tpu_torch.engine.movegen",
         "mlp_ppo_2ply_multi_tpu_torch.scripts.trajectory_parity",
+        "mlp_ppo_2ply_multi_tpu_torch.utils.ring_buffer",
+        "mlp_ppo_2ply_multi_tpu_torch.utils.profiling",
+        "mlp_ppo_2ply_multi_tpu_torch.io.remote",
+        "mlp_ppo_2ply_multi_tpu_torch.parallel.distributed",
+        "mlp_ppo_2ply_multi_tpu_torch.parallel.sharding",
+        "mlp_ppo_2ply_multi_tpu_torch.scripts.multiprocess_distributed",
     ):
         assert m in MODULES, m
     assert (ROOT / "chip_smoke.py").exists()
