@@ -28,8 +28,13 @@ the play CLI at batch 1; path 9 the trajectory-parity games
 run the redesigned take_rows; path 10 the mesh train step
 (``parallel.sharding.make_train_step``) through the training CLI with
 --fused-rollout on a one-rank NCCL group, and on two gloo ranks sharing the
-card (``scripts.multiprocess_distributed``). Phases, in order; any failure
-exits non-zero:
+card (``scripts.multiprocess_distributed``). Paths 11-15 are the JAX
+package's rejected experiments, default-off there and here: the tiered 1-ply
+step (``experimental.tiered``, ``train --tiered``) at B = 4096, whose wide
+plane runs nd_tail at K = 288 and both its planes fused_value; the Gram
+dedup (``nd_sig_dedup=False``) on the production step; the 2-ply scan
+scorer and value-first replies at B = 1024; and the probe's one-hot
+product modes. Phases, in order; any failure exits non-zero:
 
 1. device: torch's view of the card and nvidia-smi's name and power limit;
 2. build: one nvcc per kernel source, started together (seconds,
@@ -151,6 +156,34 @@ exits non-zero:
     import; (d) the ring buffer's pushes and samples on the card with no
     host sync, a push replayed in a CUDA graph, and ``profiling.profile``
     around a graphed rollout within 10% of CUDA events;
+30. the tiered 1-ply step (``apps.train``'s --production --tiered config):
+    card vs CPU at B = 256 (every ``Tiered`` field bit-equal, boards at
+    valid slots; integer state on agreeing decisions); fused_value at
+    [4096, 96] and [512, 448] and nd_tail at [512, K = 288] on one step's
+    real inputs against their plain versions (nd_tail bit-equal), timed
+    with their bounds; 8 timed eager steps at B = 4096 with exactly 2
+    fused_value and 1 nd_tail launches a step, and 2 under torch.profiler
+    (device busy ms a step, idle share); ``rollout_chunked`` (16
+    steps, chunk 4) bit-equal to ``rollout_loop``; ``apps.train.main``
+    --production --tiered, B = 4096, 2 updates of 64 steps: finite loss,
+    launches gated, ms an update;
+31. the Gram dedup: the production step at B = 4096 with
+    ``nd_sig_dedup=False`` and with signatures from one state and noise:
+    identical decisions, planes and integer state; ms a step of each;
+32. the 2-ply scan scorer at ``TwoPlyConfig(enabled=True)``'s widths,
+    B = 1024: on one state's candidates, chunk 1 bit-equal to the unrolled
+    scorer and chunk 3 within rtol 1e-5, atol 1e-6 (15 + 21 and 5 + 7 nd_tail +
+    fused_value launches); each scan scorer's kernels on its own captured
+    inputs against their plain versions (nd_tail bit-equal at [4096 and
+    12288 rows, K = 128], fused_value at [1 and 3, 1024, 4, 128] within
+    5e-3), one launch of each timed with its bound; ms a 2-ply step of
+    each, launches gated;
+33. value-first replies (``value_first_m=16``; 21 fused_value launches, no
+    nd_tail): where the inexact flag is clear, equal to the
+    reference-order scan (rtol 1e-6, atol 1e-7); ms a step;
+34. the probe's modes with no Pallas kernel (``scripts.probe_take`` xla,
+    bf16acc, int8, int8acc, f32, packed, ohonly, dotonly, bf16T) in-process
+    at N = 4096: each exact (ohonly n/a), with its ms;
 
 then the kernels line (launches summed over every path's timed run) and the
 result line. Phases 4, 7, 10 and 13 time the eager step; the training runs
@@ -283,8 +316,10 @@ def _port():
     from mlp_ppo_2ply_multi_tpu_torch.utils import profiling, ring_buffer
     from mlp_ppo_2ply_multi_tpu_torch.scripts import multiprocess_distributed
     from mlp_ppo_2ply_multi_tpu_torch.io import remote
+    from mlp_ppo_2ply_multi_tpu_torch.experimental import tiered
 
     return dict(
+        tiered=tiered,
         sharding=sharding, distributed=distributed, profiling=profiling, ring=ring_buffer,
         mpd=multiprocess_distributed, remote=remote,
         rollout=rollout, Config=Config, board=board,
@@ -837,11 +872,13 @@ def twoply_steps(P, params, state, cfg, dev, gen, n):
     return state
 
 
-def capture_twoply_inputs(P, params, state, cfg, dev, gen):
-    """Run one 2-ply step and keep the arguments of each nd_tail_fused and
-    fused_value call: the real inputs of the 2-ply path's kernels."""
-    nd, X = P["nd"], P["X"]
-    nd_real, fv_real = nd.nd_tail_fused, X.fused_value
+@contextlib.contextmanager
+def _capturing(P, fv_module):
+    """Within: the arguments of each nd_tail_fused call and the (boards,
+    flag) of each ``fv_module.fused_value`` call, cloned as they run (the
+    real inputs of a path's kernels), in two lists."""
+    nd = P["nd"]
+    nd_real, fv_real = nd.nd_tail_fused, fv_module.fused_value
     nd_seen, fv_seen = [], []
 
     def nd_capture(*args):
@@ -852,15 +889,22 @@ def capture_twoply_inputs(P, params, state, cfg, dev, gen):
         fv_seen.append((boards.clone(), torch.broadcast_to(flag, boards.shape[:-1]).clone()))
         return fv_real(boards, flag, prm)
 
-    with _Swap(nd, "nd_tail_fused", nd_capture), _Swap(X, "fused_value", fv_capture):
+    with _Swap(nd, "nd_tail_fused", nd_capture), _Swap(fv_module, "fused_value", fv_capture):
+        yield nd_seen, fv_seen
+
+
+def capture_twoply_inputs(P, params, state, cfg, dev, gen):
+    """Run one 2-ply step and keep the arguments of each nd_tail_fused and
+    fused_value call: the real inputs of the 2-ply path's kernels."""
+    with _capturing(P, P["X"]) as (nd_seen, fv_seen):
         state = twoply_steps(P, params, state, cfg, dev, gen, 1)
     return state, nd_seen, fv_seen
 
 
-def phase_twoply_kernels_vs_plain(P, params, nd_seen, fv_seen, dev, gen, card):
-    """Both kernels against their plain versions on one 2-ply step's real
-    inputs. nd_tail must be bit-equal (after at kept slots); its max abs
-    error is taken over every compared integer."""
+def nd_tail_vs_plain(P, nd_seen, dev):
+    """nd_tail against its plain version on captured calls: (max |diff| over
+    keep, n_pre, pct, kpair and the kept afterstates, whether ``after`` is
+    equal at every slot too, kept slots, rows)."""
     nd = P["nd"]
     worst = 0
     after_everywhere = True
@@ -879,6 +923,14 @@ def phase_twoply_kernels_vs_plain(P, params, nd_seen, fv_seen, dev, gen, card):
         after_everywhere &= torch.equal(got[0], want[0])
         kept += int(m.sum())
         rows += m.shape[0]
+    return worst, after_everywhere, kept, rows
+
+
+def phase_twoply_kernels_vs_plain(P, params, nd_seen, fv_seen, dev, gen, card):
+    """Both kernels against their plain versions on one 2-ply step's real
+    inputs. nd_tail must be bit-equal (after at kept slots); its max abs
+    error is taken over every compared integer."""
+    worst, after_everywhere, kept, rows = nd_tail_vs_plain(P, nd_seen, dev)
     n_pre = torch.cat([a[0].sum(-1) for a in nd_seen])
     log(f"[9 kernels vs plain 2-ply] nd_tail: {len(nd_seen)} calls at "
         f"{list(nd_seen[0][0].shape[:1]) + [nd_seen[0][7]]} (K = a_max = {nd_seen[0][8]}), "
@@ -1066,6 +1118,21 @@ def phase_twoply_kernel_timing(P, params, nd_seen, fv_seen, dev, card):
     """nd_tail per captured call: the kernel alone, the wrapper (operand
     layout + launch) and the plain version; fused_value at the 2-ply
     shapes likewise. Each summed over one step's launches."""
+    per, nd_step = nd_tail_timing(P, nd_seen, dev)
+    log(f"[14 kernel time 2-ply] nd_tail per launch: "
+        f"{json.dumps({k: per[0][k] for k in ('rows', 'K', 'present_per_row', 'child_rows_per_row', 'bytes', 'ops', 'bytes_ms', 'ops_ms', 'bound_ms')})}; "
+        f"event-timed loop ms per call {[round(r['events_ms'], 4) for r in per]} {card}")
+    log(f"[14 kernel time 2-ply] nd_tail one step: {json.dumps(nd_step)} {card}")
+    fv_step = phase_kernel_timing(P, params, fv_seen, dev, card, "[14 kernel time 2-ply] fused_value", 10)
+    fv_step["dense_product_ms"] = dense_product_ms(P, params, fv_seen[1][0], dev, card)
+    return nd_step, fv_step
+
+
+def nd_tail_timing(P, nd_seen, dev):
+    """Per captured nd_tail call, CUDA events around loops of the kernel
+    alone, the wrapper (operand layout + launch) and the plain version,
+    with the bound (``nd_tail_bound``); and their sums over the calls, the
+    kernel's device time from its launches queued ahead of the card."""
     nd = P["nd"]
     per = []
     kernel_calls = []
@@ -1082,14 +1149,7 @@ def phase_twoply_kernel_timing(P, params, nd_seen, fv_seen, dev, card):
         per.append(dict(events_ms=(k1 + k2) / 2, wrapper_ms=(w1 + w2) / 2,
                         plain_ms=(p1 + p2) / 2, runs_ms=[p1, k1, w1, w2, k2, p2],
                         **nd_tail_bound(args[0], K)))
-    nd_step = _step_sums(per, _queued_ms_per_round(kernel_calls, dev))
-    log(f"[14 kernel time 2-ply] nd_tail per launch: "
-        f"{json.dumps({k: per[0][k] for k in ('rows', 'K', 'present_per_row', 'child_rows_per_row', 'bytes', 'ops', 'bytes_ms', 'ops_ms', 'bound_ms')})}; "
-        f"event-timed loop ms per call {[round(r['events_ms'], 4) for r in per]} {card}")
-    log(f"[14 kernel time 2-ply] nd_tail one step: {json.dumps(nd_step)} {card}")
-    fv_step = phase_kernel_timing(P, params, fv_seen, dev, card, "[14 kernel time 2-ply] fused_value", 10)
-    fv_step["dense_product_ms"] = dense_product_ms(P, params, fv_seen[1][0], dev, card)
-    return nd_step, fv_step
+    return per, _step_sums(per, _queued_ms_per_round(kernel_calls, dev))
 
 
 def dense_product_ms(P, params, boards, dev, card):
@@ -2283,6 +2343,371 @@ def phase_ring_and_profile(P, dev, gen, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the JAX package's rejected experiments (the tiered pipeline, the Gram
+# dedup, the scan scorer, the value-first replies) and the probe's XLA modes
+# ---------------------------------------------------------------------------
+
+B_TIERED_SMALL = 256  # phase 30a: card vs CPU
+TIERED_STEPS = 8
+TIERED_GRAPH_STEPS = 16
+TRAIN_TIERED = ["--production", "--tiered", "--mode", "continuous", "--td-mode", "side0",
+                "--batch-games", str(B_PROD), "--steps-per-update", "64", "--updates", "2"]
+GRAM_STEPS = 4
+SCAN_STEPS = 3
+VALUE_FIRST_M = 16
+# tests/test_torch_twoply_scan.py: the scores are f32 sums of 21 terms of
+# magnitude below ~1, of either sign (the head is linear), added in another
+# order, so a relative bound alone fails near 0
+SCAN_RTOL, SCAN_ATOL = 1e-5, 1e-6
+VF_RTOL, VF_ATOL = 1e-6, 1e-7  # JAX tests/test_twoply_valuefirst.py:134
+
+
+def tiered_config(P):
+    """The config ``apps.train`` builds for --production --tiered --td-mode
+    side0: Config.production() with the tiered pipeline, nd_tier 96 and
+    dd_tier (48, 96, 96)."""
+    T = P["train"]
+    return T.build_config(T._parser().parse_args(["--production", "--tiered",
+                                                  "--td-mode", "side0"]))
+
+
+def capture_tiered_inputs(P, params, state, cfg, dev, gen):
+    """One tiered step; the (boards, flag) of its two fused_value calls and
+    the arguments of its nd_tail_fused call (the wide plane's tail)."""
+    with _capturing(P, P["tiered"]) as (nd_seen, fv_seen):
+        state, _ = P["rollout"].rollout_step(params, state, cfg.train.initial_temperature,
+                                             cfg, True, gen=gen, device=dev)
+    return state, fv_seen, nd_seen
+
+
+def timed_steps(P, params, state, cfg, dev, gen, n, noises=None):
+    """``n`` eager steps timed by CUDA events, each kernel's launches
+    counted from 0 just before them; (state, trajectory, ms a step,
+    launches)."""
+    R, fv, nd = P["rollout"], P["fv"], P["nd"]
+    temp = cfg.train.initial_temperature
+    _sync(dev)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fv.KERNEL.launches = nd.KERNEL.launches = 0
+    e0.record()
+    ts = []
+    for i in range(n):
+        nz = None if noises is None else noises[i]
+        state, t = R.rollout_step(params, state, temp, cfg, True, noise=nz, gen=gen, device=dev)
+        ts.append(t)
+    e1.record()
+    _sync(dev)
+    launches = {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches}
+    traj = R.Transition(*(torch.stack(xs) for xs in zip(*ts)))
+    return state, traj, e0.elapsed_time(e1) / n, launches
+
+
+def phase_tiered(P, dev, gen, card, train1):
+    """30: the tiered 1-ply step (``train --tiered``'s config) at B = 4096:
+    (a) card vs CPU at B = 256, every Tiered field bit-equal (boards at
+    valid slots) and the step's integer state on agreeing decisions; (b)
+    fused_value at [4096, 96] and [512, 448] and nd_tail at [512, K = 288]
+    on one step's real inputs against their plain versions (nd_tail
+    bit-equal) and timed with their bounds; (c) timed eager steps, exactly
+    2 fused_value and 1 nd_tail launches a step, then two steps under
+    torch.profiler (device busy, idle share); (d) rollout_chunked (chunk
+    4, 16 steps) bit-equal to rollout_loop; (e) ``apps.train.main`` with
+    --production --tiered, 2 updates of 64 steps: finite loss, launches
+    gated, ms an update beside phase 16's (``train1``)."""
+    R, VE, XT, fv, nd, Bd = (P["rollout"], P["vec_env"], P["tiered"], P["fv"], P["nd"],
+                             P["board"])
+    cfg = tiered_config(P)
+    params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
+    temp = cfg.train.initial_temperature
+    out = {}
+
+    # (a) card vs CPU
+    state = VE.reset(B_TIERED_SMALL, gen, device=dev)
+    for _ in range(4):
+        state, _ = R.rollout_step(params, state, temp, cfg, True, gen=gen, device=dev)
+    noise = R.draw_noise(B_TIERED_SMALL, cfg, gen, dev)
+    cpu = torch.device("cpu")
+    state_c, noise_c = _to_cpu(state), _to_cpu(noise)
+    params_c = {k: v.cpu() for k, v in params.items()}
+    ti_g = XT.legal_moves_tiered(state.board, state.player, state.dice, cfg.movegen)
+    ti_c = XT.legal_moves_tiered(state_c.board, state_c.player, state_c.dice, cfg.movegen)
+    for name in ("narrow_valid", "wide_player", "in_wide", "wide_slot", "count", "overflow"):
+        if not torch.equal(getattr(ti_g, name).cpu(), getattr(ti_c, name)):
+            raise AssertionError(f"[30 tiered] legal_moves_tiered {name} differs card vs CPU")
+    for f in ("valid", "count", "overflow"):
+        if not torch.equal(getattr(ti_g.wide, f).cpu(), getattr(ti_c.wide, f)):
+            raise AssertionError(f"[30 tiered] legal_moves_tiered wide.{f} differs card vs CPU")
+    m, w = ti_c.narrow_valid, ti_c.wide.valid
+    if not (torch.equal(ti_g.narrow_boards.data.cpu()[m], ti_c.narrow_boards.data[m])
+            and torch.equal(ti_g.wide.boards.data.cpu()[w], ti_c.wide.boards.data[w])):
+        raise AssertionError("[30 tiered] legal_moves_tiered boards differ card vs CPU")
+    ch_g, _ = XT.chosen_tiered(params, state, ti_g, noise.gumbel_t1, noise.gumbel_t2,
+                               torch.tensor(temp, device=dev), cfg)
+    ch_c, _ = XT.chosen_tiered(params_c, state_c, ti_c, noise_c.gumbel_t1, noise_c.gumbel_t2,
+                               torch.tensor(temp), cfg)
+    live = ti_c.count > 0
+    agree = (ch_g.data.cpu() == ch_c.data).all(-1) | ~live
+    res_g = R.rollout_step(params, state, temp, cfg, True, noise=noise, device=dev)
+    res_c = R.rollout_step(params_c, state_c, temp, cfg, True, noise=noise_c, device=cpu)
+    compare_steps(P, res_g, res_c, agree, "[30 tiered] card vs CPU step")
+    n_dis = int((~agree).sum())
+    out["card_vs_cpu"] = dict(batch=B_TIERED_SMALL, wide_rows=int(ti_c.in_wide.sum()),
+                              disagreements=n_dis, live=int(live.sum()))
+    log(f"[30 tiered] card vs CPU at B={B_TIERED_SMALL}: every Tiered field bit-equal; "
+        f"{json.dumps(out['card_vs_cpu'])} {card}")
+    if n_dis > (1 - AGREE_MIN) * int(live.sum()):
+        raise AssertionError("[30 tiered] card and CPU decisions disagree")
+    del state_c, noise_c, ti_c, res_c
+
+    # (b) the kernels on one step's real inputs at B = 4096
+    state = VE.reset(B_PROD, gen, device=dev)
+    for _ in range(2):
+        state, _ = R.rollout_step(params, state, temp, cfg, True, gen=gen, device=dev)
+    state, fv_seen, nd_seen = capture_tiered_inputs(P, params, state, cfg, dev, gen)
+    wb = B_PROD // cfg.movegen.tiered_wide_div
+    shapes = [tuple(b.shape[:-1]) for b, _ in fv_seen]
+    nd_shapes = [(a[0].shape[0], a[7]) for a in nd_seen]
+    if shapes != [(B_PROD, 96), (wb, 448)] or nd_shapes != [(wb, 288)]:
+        raise AssertionError(f"[30 tiered] unexpected kernel shapes {shapes} {nd_shapes}")
+    fv_err = phase_kernel_vs_plain(P, params, fv_seen, dev, gen, card, random_cases=False,
+                                   tag="[30 tiered] fused_value")
+    nd_err, after_all, kept, rows = nd_tail_vs_plain(P, nd_seen, dev)
+    log(f"[30 tiered] nd_tail at [{wb}, K = 288]: max |diff| {nd_err} over keep/n_pre/pct/"
+        f"kpair and {kept} kept afterstates; after equal at every slot: {after_all} {card}")
+    if nd_err:
+        raise AssertionError("[30 tiered] nd_tail differs from its plain version")
+    fv_time = phase_kernel_timing(P, params, fv_seen, dev, card, "[30 tiered] fused_value", 10)
+    nd_per, nd_time = nd_tail_timing(P, nd_seen, dev)
+    nd_row = {**nd_per[0], "ms": nd_time["ms"]}
+    log(f"[30 tiered] nd_tail one launch at [{wb}, K = 288]: {json.dumps(nd_row)} {card}")
+    out.update(fv_err=fv_err, nd_err=float(nd_err), fv_time=fv_time, nd_time=nd_row)
+    del fv_seen, nd_seen
+
+    # (c) timed eager steps
+    state, traj, ms, launches = timed_steps(P, params, state, cfg, dev, gen, TIERED_STEPS)
+    _gate(launches, {"fused_value": 2 * TIERED_STEPS, "nd_tail": TIERED_STEPS},
+          "[30 tiered] eager steps")
+    ok = bool(Bd.checker_conservation_ok(state.board).all() & torch.isfinite(traj.value).all())
+    out["eager"] = dict(batch=B_PROD, steps=TIERED_STEPS, ms_per_step=ms, launches=launches,
+                        env_steps_per_s=B_PROD / (ms / 1e3),
+                        overflow_count=int(traj.overflow.sum()),
+                        mean_legal_moves=float(traj.num_moves[traj.recorded].float().mean()),
+                        checkers_and_values_ok=ok)
+    log(f"[30 tiered] eager steps: {json.dumps(out['eager'])} {card}")
+    if not ok:
+        raise AssertionError("[30 tiered] invalid boards or values")
+    # the device's busy time beside the host's: what the eager step waits on
+    profile_steps(P, params, state, cfg, dev, gen, 2, ms, card, "[30 tiered]")
+
+    # (d) graphed vs eager
+    P["graphs"].clear_graphs()
+    eager, graphed, launches = eager_and_graphed(P, params, cfg, B_PROD, TIERED_GRAPH_STEPS, 4,
+                                                 30, dev)
+    dv = compare_rollouts(eager, graphed, "[30 tiered] graphed vs eager")
+    _gate(launches, {"fused_value": 2 * TIERED_GRAPH_STEPS, "nd_tail": TIERED_GRAPH_STEPS},
+          "[30 tiered] graphed")
+    out["graph"] = dict(steps=TIERED_GRAPH_STEPS, chunk=4, launches=launches, max_abs_dv=dv)
+    log(f"[30 tiered] rollout_chunked bit-equal to rollout_loop: {json.dumps(out['graph'])} "
+        f"{card}")
+    P["graphs"].clear_graphs()
+    del eager, graphed
+
+    # (e) the training CLI
+    stats, lines, _, _ = run_train(P, TRAIN_TIERED, dev, "[30 tiered train]", card)
+    spu = int(TRAIN_TIERED[TRAIN_TIERED.index("--steps-per-update") + 1])
+    steps = spu * stats["updates"]
+    want = {"fused_value": 2 * steps, "nd_tail": steps}
+    if stats["updates"] != 2 or not all(math.isfinite(x) for x in stats["loss"]):
+        raise AssertionError(f"[30 tiered train] metrics lines {stats['updates']} {stats['loss']}")
+    _gate(stats["launches"], want, "[30 tiered train]")
+    stats.update(**update_breakdown(stats, spu),
+                 phase16_ms_per_update=train1["ms_per_update"])
+    out["train"] = stats
+    log(f"[30 tiered train] {json.dumps(stats)}")
+    return out
+
+
+def phase_gram(P, dev, gen, card):
+    """31: the production 1-ply step at B = 4096 with ``nd_sig_dedup=False``
+    (the Gram dedup) and with signatures, from the same state and noise:
+    identical decisions, split planes and integer state; ms a step of each
+    over the same noise."""
+    R, VE = P["rollout"], P["vec_env"]
+    cfg = production_config(P)
+    gram = cfg.replace(movegen=dataclasses.replace(cfg.movegen, nd_sig_dedup=False))
+    params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
+    state = VE.reset(B_PROD, gen, device=dev)
+    for _ in range(4):
+        state, _ = R.rollout_step(params, state, 1.0, cfg, True, gen=gen, device=dev)
+    noise = R.draw_noise(B_PROD, cfg, gen, dev)
+    a_s, sm_s = decisions(P, params, state, noise, cfg)
+    a_g, sm_g = decisions(P, params, state, noise, gram)
+    for f in ("valid", "count", "overflow", "nd_keep", "ndw_keep"):
+        if not torch.equal(getattr(sm_s, f), getattr(sm_g, f)):
+            raise AssertionError(f"[31 gram] legal_moves_split {f} differs from the sig dedup")
+    res_s = R.rollout_step(params, state, 1.0, cfg, True, noise=noise, device=dev)
+    res_g = R.rollout_step(params, state, 1.0, gram, True, noise=noise, device=dev)
+    compare_rollouts(res_s, res_g, "[31 gram] gram vs sig step")
+    if not torch.equal(a_s, a_g):
+        raise AssertionError("[31 gram] decisions differ")
+    noises = [R.draw_noise(B_PROD, cfg, gen, dev) for _ in range(GRAM_STEPS)]
+    out = {}
+    for c in (cfg, gram):  # warm-up
+        timed_steps(P, params, state, c, dev, gen, 1, noises)
+    for name, c in (("sig", cfg), ("gram", gram), ("gram_again", gram), ("sig_again", cfg)):
+        _, _, ms, launches = timed_steps(P, params, state, c, dev, gen, GRAM_STEPS, noises)
+        _gate(launches, {"fused_value": 2 * GRAM_STEPS, "nd_tail": 0}, f"[31 gram] {name}")
+        out[name] = dict(ms_per_step=ms, launches=launches)
+    log(f"[31 gram] B={B_PROD}: decisions, planes and integer state identical; ms a step "
+        f"(eager, same noise): {json.dumps(out)} {card}")
+    return out
+
+
+def scan_config(P, **twoply):
+    """Config.production() with td_mode "side0" and the 2-ply scorer at
+    ``TwoPlyConfig(enabled=True)``'s uniform reply widths."""
+    cfg = production_config(P)
+    return cfg.replace(twoply=P["cfg"].TwoPlyConfig(enabled=True, **twoply))
+
+
+def twoply_candidates(P, params, state, cfg):
+    """The top-k candidate boards ``select_action_2ply`` reranks, and the
+    replying player."""
+    X, MG = P["X"], P["movegen"]
+    moves = MG.legal_moves(state.board, state.player, state.dice, cfg.movegen)
+    v = X.oriented_values(params, moves.boards, state.player[..., None], cfg)
+    _, topi = X.topk_small(torch.where(moves.valid, v, -1e9), cfg.twoply.top_k_candidates)
+    return MG.board_take(moves.boards, topi), 1 - state.player
+
+
+def scorer_kernels_vs_plain(P, params, cfg, nd_seen, fv_seen, want, dev, gen, card, tag):
+    """The kernels of one scorer call against their plain versions on its
+    captured inputs: each nd_tail call bit-equal, each fused_value call
+    within KERNEL_TOL, at the shapes the scorer gives them (C = roll_chunk
+    rolls a call: nd_tail at [C x B x top_k rows, K = reply_a_max],
+    fused_value at [C, B, top_k, reply_a_max]), gated; then one launch of
+    each timed with its bound."""
+    tp = cfg.twoply
+    C = tp.roll_chunk
+    rows = C * B_TWOPLY * tp.top_k_candidates
+    nd_shapes = {(a[0].shape[0], a[7], a[8]) for a in nd_seen}
+    fv_shapes = {tuple(b.shape[:-1]) for b, _ in fv_seen}
+    want_nd = {(rows, tp.reply_a_max, tp.reply_a_max)} if want["nd_tail"] else set()
+    want_fv = {(C, B_TWOPLY, tp.top_k_candidates, tp.reply_a_max)}
+    if (len(nd_seen), len(fv_seen)) != (want["nd_tail"], want["fused_value"]) or (
+            nd_shapes, fv_shapes) != (want_nd, want_fv):
+        raise AssertionError(f"{tag}: kernel calls {len(nd_seen)} x {nd_shapes}, "
+                             f"{len(fv_seen)} x {fv_shapes}")
+    row = dict(nd_tail_calls=len(nd_seen), nd_tail_shape=sorted(nd_shapes),
+               fused_value_calls=len(fv_seen), fused_value_shape=sorted(fv_shapes))
+    if nd_seen:
+        nd_err, after_all, kept, n_rows = nd_tail_vs_plain(P, nd_seen, dev)
+        log(f"{tag} nd_tail at {sorted(nd_shapes)} x{len(nd_seen)}: max |diff| {nd_err} "
+            f"over keep/n_pre/pct/kpair and {kept} kept afterstates of {n_rows} rows; after "
+            f"equal at every slot: {after_all} {card}")
+        if nd_err:
+            raise AssertionError(f"{tag}: nd_tail differs from its plain version")
+        per, step = nd_tail_timing(P, nd_seen[:1], dev)
+        row.update(nd_err=float(nd_err), nd_tail_time={**per[0], "ms": step["ms"]})
+        log(f"{tag} nd_tail one launch: {json.dumps(row['nd_tail_time'])} {card}")
+    row["fv_err"] = phase_kernel_vs_plain(P, params, fv_seen, dev, gen, card,
+                                          random_cases=False, tag=f"{tag} fused_value")
+    row["fused_value_time"] = phase_kernel_timing(P, params, fv_seen[:1], dev, card,
+                                                  f"{tag} fused_value", 10)
+    return row
+
+
+def phase_scan_and_value_first(P, dev, gen, card):
+    """32-33: the 2-ply scan scorer and the value-first replies at B = 1024
+    on one state's top-4 candidates: the scan at roll_chunk 1 bit-equal to
+    the unrolled scorer (15 nd_tail + 21 fused_value launches each), at
+    roll_chunk 3 within rtol 1e-5, atol 1e-6 of it (5 + 7 launches);
+    value_first_m=16 (no nd_tail launch, 21 fused_value) equal to the
+    reference-order scan where its inexact flag is clear (rtol 1e-6, atol
+    1e-7); each scan scorer's kernels on its own inputs against their plain
+    versions (``scorer_kernels_vs_plain``); then ms a step of the 2-ply
+    rollout step with each scorer, launches gated."""
+    R, VE, X, fv, nd = P["rollout"], P["vec_env"], P["X"], P["fv"], P["nd"]
+    params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
+    variants = {
+        "unrolled": (scan_config(P), {"fused_value": 21, "nd_tail": 15}),
+        "scan_chunk1": (scan_config(P, unroll_rolls=False), {"fused_value": 21, "nd_tail": 15}),
+        "scan_chunk3": (scan_config(P, roll_chunk=3), {"fused_value": 7, "nd_tail": 5}),
+        "value_first16": (scan_config(P, value_first_m=VALUE_FIRST_M),
+                          {"fused_value": 21, "nd_tail": 0}),
+    }
+    base = variants["unrolled"][0]
+    state = VE.reset(B_TWOPLY, gen, device=dev)
+    state = twoply_steps(P, params, state, base, dev, gen, 2)
+    cand, opp = twoply_candidates(P, params, state, base)
+    scores, held = {}, {}
+    for name, (cfg, want) in variants.items():
+        _sync(dev)
+        fv.KERNEL.launches = nd.KERNEL.launches = 0
+        with _capturing(P, X) as (nd_seen, fv_seen):
+            scores[name] = X.weighted_opponent_response(params, cand, opp, cfg,
+                                                        return_flags=True)
+        _sync(dev)
+        _gate({"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches}, want,
+              f"[32 scan] {name} scorer")
+        if name != "unrolled":  # phases 9 and 14 hold the unrolled scorer's kernels
+            held[name] = scorer_kernels_vs_plain(P, params, cfg, nd_seen, fv_seen, want,
+                                                 dev, gen, card, f"[32 scan] {name}")
+        del nd_seen, fv_seen
+    ref = scores["unrolled"][0]
+    if not torch.isfinite(ref).all():
+        raise AssertionError("[32 scan] scores not finite")
+    if not torch.equal(scores["scan_chunk1"][0], ref):
+        raise AssertionError("[32 scan] the scan at chunk 1 differs from the unrolled scorer")
+    err3 = float((scores["scan_chunk3"][0] - ref).abs().max())
+    if not torch.allclose(scores["scan_chunk3"][0], ref, rtol=SCAN_RTOL, atol=SCAN_ATOL):
+        raise AssertionError(f"[32 scan] chunk 3 off the unrolled scorer by {err3}")
+    vf, flags = scores["value_first16"]
+    clear = ~flags
+    vf_err = float((vf - scores["scan_chunk1"][0])[clear].abs().max())
+    if not torch.allclose(vf[clear], scores["scan_chunk1"][0][clear], rtol=VF_RTOL,
+                          atol=VF_ATOL):
+        raise AssertionError(f"[33 value first] scores off the reference order by {vf_err}")
+    out = dict(candidates=list(cand.batch_shape), chunk1_bit_equal=True,
+               chunk3_max_abs=err3, value_first_inexact=int(flags.sum()),
+               value_first_max_abs_where_clear=vf_err, kernels=held, steps={})
+    log(f"[32 scan] scorers on one state's candidates: {json.dumps(out)} {card}")
+    noises = [R.draw_noise(B_TWOPLY, base, gen, dev) for _ in range(SCAN_STEPS)]
+    for name, (cfg, want) in variants.items():
+        twoply_steps(P, params, state, cfg, dev, gen, 1)  # warm-up
+        _, traj, ms, launches = timed_steps(P, params, state, cfg, dev, gen, SCAN_STEPS, noises)
+        _gate(launches, {"fused_value": SCAN_STEPS * (want["fused_value"] + 1),
+                         "nd_tail": SCAN_STEPS * want["nd_tail"]}, f"[32 scan] {name} steps")
+        out["steps"][name] = dict(batch=B_TWOPLY, ms_per_step=ms, launches=launches,
+                                  env_steps_per_s=B_TWOPLY / (ms / 1e3))
+        log(f"[{33 if name == 'value_first16' else 32} {'value first' if name == 'value_first16' else 'scan'}] "
+            f"{name} 2-ply step: {json.dumps(out['steps'][name])} {card}")
+        if not torch.isfinite(traj.value).all():
+            raise AssertionError(f"[32 scan] {name} values not finite")
+    return out
+
+
+def phase_probe_xla_modes(P, card):
+    """34: the probe's modes with no Pallas kernel behind them
+    (``scripts.probe_take``, JAX script :99-197) in-process at the probe's
+    shape: each exact (``ohonly`` n/a), with its ms."""
+    probe = P["probe"]
+    rows = {}
+    for mode in probe.XLA_MODES:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = probe.main([mode])
+        lines = buf.getvalue().splitlines()
+        want = "exact: n/a" if mode == "ohonly" else "exact: True"
+        if rc != 0 or lines[:1] != [want]:
+            raise AssertionError(f"[34 probe modes] {mode}: rc {rc}, {lines}")
+        rows[mode] = dict(exact=lines[0].split(": ")[1],
+                          ms=float(lines[1].split(": ")[1].split(" ms")[0]))
+    log(f"[34 probe modes] N=4096, K=W=128: {json.dumps(rows)} {card}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
@@ -2370,6 +2795,16 @@ def main() -> int:
     phase_mesh_world2(card)
     phase_remote_refusal(P, card)
     phase_ring_and_profile(P, dev, gen, card)
+    tiered = phase_tiered(P, dev, gen, card, train1)
+    gram = phase_gram(P, dev, gen, card)
+    scan = phase_scan_and_value_first(P, dev, gen, card)
+    phase_probe_xla_modes(P, card)
+    # the launches of phases 30-33's timed runs, each counted from 0
+    a16 = {k: tiered["eager"]["launches"][k] + tiered["graph"]["launches"][k]
+           + tiered["train"]["launches"][k]
+           + sum(r["launches"][k] for r in gram.values())
+           + sum(r["launches"][k] for r in scan["steps"].values())
+           for k in ("fused_value", "nd_tail")}
     eval_nd = ev["launches"] + cli["launches"]
     nd576 = ev["nd_tail_k576"]
     probe = take_rows["probe"]
@@ -2383,8 +2818,9 @@ def main() -> int:
             # every path's timed run, each counted from 0 just before it
             "launches": stats["fused_value_launches"] + stats2["fused_value_launches"]
             + sum(t["launches"]["fused_value"] for t in trains.values()) + graph_fv
-            + mesh["launches"]["fused_value"],
-            "max_abs_err": max(max_err, fv2_err),
+            + mesh["launches"]["fused_value"] + a16["fused_value"],
+            "max_abs_err": max(max_err, fv2_err, tiered["fv_err"],
+                               *(r["fv_err"] for r in scan["kernels"].values())),
             # one 1-ply production step's two launches (tier 1 + tier 2), summed;
             # ms is their device time with the launches queued ahead of the card
             "ms": fv1_step["ms"],
@@ -2399,6 +2835,19 @@ def main() -> int:
                 "graphs": {"launches": graph_fv},
                 # phase 29a: the mesh train step at 1 x 1 through the CLI
                 "train_mesh": {"launches": mesh["launches"]["fused_value"]},
+                # phase 30: the tiered step, [4096, 96] and [512, 448] a step
+                "tiered": {"launches": {k: tiered[k]["launches"]["fused_value"]
+                                        for k in ("eager", "graph", "train")},
+                           **tiered["fv_time"]},
+                # phases 31-33: the Gram dedup, the scan and value-first steps
+                "gram": {"launches": sum(r["launches"]["fused_value"] for r in gram.values())},
+                "scan_and_value_first": {
+                    "launches": {k: r["launches"]["fused_value"]
+                                 for k, r in scan["steps"].items()},
+                    # one launch at [C, 1024, 4, 128], C = roll_chunk
+                    "one_launch": {k: {f: r["fused_value_time"][f]
+                                       for f in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                                   for k, r in scan["kernels"].items()}},
             },
             "ok": True,
         },
@@ -2408,8 +2857,9 @@ def main() -> int:
             "source": ND_SOURCE,
             "replaces": ND_REPLACES,
             "launches": stats2["nd_tail_launches"] + train2["launches"]["nd_tail"] + graph_nd
-            + eval_nd,
-            "max_abs_err": nd_err,
+            + eval_nd + a16["nd_tail"],
+            "max_abs_err": max(nd_err, tiered["nd_err"],
+                               *(r.get("nd_err", 0.0) for r in scan["kernels"].values())),
             # one 2-ply step's 15 launches at [4096 rows, K = 96], summed
             "ms": nd_step["ms"],
             "plain_ms": nd_step["plain_ms"],
@@ -2426,7 +2876,23 @@ def main() -> int:
                       "eval": {"launches": eval_nd, "K": 576,
                                "ms_per_launch": nd576["ms_per_launch"],
                                "plain_ms": nd576["plain_ms"], "bound_ms": nd576["bound_ms"],
-                               "bound_by": nd576["bound_by"]}},
+                               "bound_by": nd576["bound_by"]},
+                      # phase 30: the tiered wide plane, one launch a step at
+                      # [512, K = 288]
+                      "tiered": {"launches": {k: tiered[k]["launches"]["nd_tail"]
+                                              for k in ("eager", "graph", "train")},
+                                 "K": 288, "ms_per_launch": tiered["nd_time"]["ms"],
+                                 "plain_ms": tiered["nd_time"]["plain_ms"],
+                                 "bound_ms": tiered["nd_time"]["bound_ms"],
+                                 "bound_by": tiered["nd_time"]["bound_by"]},
+                      # phases 32-33: the scan scorer, 15 launches a step at
+                      # chunk 1 and 5 at chunk 3; value-first runs none
+                      "scan": {"launches": {k: r["launches"]["nd_tail"]
+                                            for k, r in scan["steps"].items()},
+                               # one launch at [C x 4096 rows, K = 128]
+                               "one_launch": {k: {f: r["nd_tail_time"][f] for f in (
+                                   "rows", "ms", "plain_ms", "bound_ms", "bound_by")}
+                                   for k, r in scan["kernels"].items() if "nd_tail_time" in r}}},
             "ok": True,
         },
         {

@@ -10,11 +10,12 @@ reference, which stays as it is) module for module:
     ops/      the fused board -> value kernel (CUDA C++ for sm_90a) and its
               plain PyTorch version; the shared nvcc build helper
     experimental/  the fused non-doubles tail kernel (CUDA C++ for sm_90a)
-              and its plain PyTorch version (the 2-ply reply path)
+              and its plain PyTorch version (the 2-ply reply path); the
+              rejected tiered pipeline and two-tier doubles
     env/      the batched environment
     twoply/   the 2-ply expectimax rerank
-    actor/    the self-play rollout step: 1-ply split planes or merged moves,
-              or 2-ply
+    actor/    the self-play rollout step: 1-ply split planes, merged moves or
+              the tiered pipeline, or 2-ply
     learner/  the TD(0) learner (optax's clip + Adam written out)
     io/       checkpoints of the whole training state, the metrics writer
     apps/     the training CLI (python -m mlp_ppo_2ply_multi_tpu_torch.apps.train)

@@ -1,7 +1,15 @@
 """Batched self-play actor: movegen -> values -> sampling -> env step, for
 every game in lockstep.
 
-Port of ``mlp_ppo_2ply_multi_tpu/actor/rollout.py``, three of its branches:
+Port of ``mlp_ppo_2ply_multi_tpu/actor/rollout.py``, all four of its
+branches:
+
+* 1-ply tiered (``movegen.tiered``, ``train --tiered``; a rejected
+  experiment kept default-off): ``experimental.tiered.legal_moves_tiered``
+  gives a narrow [B, nd_tier] plane and a full-width sub-batch of the games
+  it flags, ``chosen_tiered`` samples in each through ``fused_value`` (two
+  launches) and returns the chosen board, then ``step_chosen``. It comes
+  before split planes, needs the fused actor and reports no tier overflow.
 
 * 1-ply split planes (``Config.production()``: ``split_planes=True``,
   ``fused_actor_kernel=True``, ``actor_tier_width=96``):
@@ -30,10 +38,8 @@ Port of ``mlp_ppo_2ply_multi_tpu/actor/rollout.py``, three of its branches:
 
 Randomness is injected through ``StepNoise`` (1-ply) or ``TwoPlyNoise``
 (2-ply). Without one, a step draws its noise from the caller's
-``torch.Generator`` on the device. The tiered pipeline
-(``movegen.tiered``) raises ``NotImplementedError``, and so does a move
-generator other than the canonical one (``movegen.legal_moves``). The step
-never builds an autograd graph.
+``torch.Generator`` on the device. The step never builds an autograd
+graph.
 
 Three functions stack steps into a [T, B] trajectory:
 
@@ -80,16 +86,17 @@ from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import (
 )
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen2 import (
     SplitMoves,
+    _rows_in,
     _select_set_bits,
     _take0,
     legal_moves_split,
 )
 from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
+from mlp_ppo_2ply_multi_tpu_torch.experimental import tiered as xt
 from mlp_ppo_2ply_multi_tpu_torch.model import value_net
+from mlp_ppo_2ply_multi_tpu_torch.model.sampling import orient, sample
 from mlp_ppo_2ply_multi_tpu_torch.ops.fused_value import fused_value
 from mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax import select_action_2ply
-
-_NEG = -1e9
 
 
 class Transition(NamedTuple):
@@ -111,10 +118,11 @@ class Transition(NamedTuple):
 
 class StepNoise(NamedTuple):
     """All randomness of one 1-ply step, injectable for parity runs. Without
-    a tier (``_noise_shapes``) gumbel_t1 is [B, W] and gumbel_t2 empty."""
+    a tier (``_noise_shapes``) gumbel_t1 is [B, W] and gumbel_t2 empty; in
+    the tiered pipeline they sample its narrow and wide planes."""
 
-    gumbel_t1: torch.Tensor  # f32 [B, tier] tier-1 sampling noise
-    gumbel_t2: torch.Tensor  # f32 [wn, W] tier-2 sampling noise
+    gumbel_t1: torch.Tensor  # f32 [B, tier] tier-1 (narrow plane) sampling noise
+    gumbel_t2: torch.Tensor  # f32 [wn, W] tier-2 (wide plane) sampling noise
     next_dice: torch.Tensor  # int [B, 2] dice adopted by advancing games
     reset_opener: torch.Tensor  # int [B, 2] non-double opening rolls
     reset_first: torch.Tensor  # int [B, 2] non-double first rolls
@@ -137,8 +145,12 @@ def _noise_shapes(batch: int, cfg: Config) -> Tuple[int, int, int]:
     ``legal_moves`` and ``legal_moves_split``, a_max for the sorted engine).
     The two-tier actor has t1 = tier and wn = max(8, batch //
     actor_tier_wide_div); without a tier (no fused kernel, a tier of 0 or
-    one not below W) t1 = W and wn = 0."""
+    one not below W) t1 = W and wn = 0. The tiered pipeline
+    (``movegen.tiered``, 1-ply) samples its narrow plane, t1 = nd_tier, and
+    its wide plane, wn = max(8, batch // tiered_wide_div)."""
     w = moveset_width(cfg.movegen)
+    if cfg.movegen.tiered and not cfg.twoply.enabled:
+        return cfg.movegen.nd_tier, max(8, batch // cfg.movegen.tiered_wide_div), w
     tier = cfg.model.actor_tier_width
     if not (cfg.model.fused_actor_kernel and 0 < tier < w):
         return w, 0, w
@@ -194,15 +206,6 @@ def _overflow(moves: MoveSet) -> torch.Tensor:
     return moves.overflow
 
 
-def _sample(values, valid, sgn, gumbel_noise, temperature) -> torch.Tensor:
-    """argmax(where(valid, V / T, -1e9) + gumbel), V signed by the mover in
-    td_mode "side0": the draw ``jax.random.categorical`` makes."""
-    if sgn is not None:
-        values = values * sgn[..., None]
-    logits = torch.where(valid, values / temperature, _NEG)
-    return torch.argmax(logits + gumbel_noise, -1)
-
-
 def _wide_rows(count: torch.Tensor, tier: int, cfg: Config):
     """The tier-2 sub-batch: (wide, sel, sel_ok, in_sub, slot) — the games
     with more than ``tier`` moves, the first batch/``actor_tier_wide_div``
@@ -211,9 +214,7 @@ def _wide_rows(count: torch.Tensor, tier: int, cfg: Config):
     wide = count > tier
     wn = max(8, count.shape[0] // cfg.model.actor_tier_wide_div)
     sel, sel_ok = _select_set_bits(wide, wn)  # [wn]
-    rank = torch.cumsum(wide.to(torch.int32), 0, dtype=torch.int32) - 1
-    in_sub = wide & (rank < wn)
-    return wide, sel, sel_ok, in_sub, rank.clamp(0, wn - 1)
+    return (wide, sel, sel_ok, *_rows_in(wide, wn))
 
 
 def select_action(
@@ -234,9 +235,7 @@ def select_action(
     candidates ``fused_value``, two-tier (``_select_action_tiered``) when
     ``actor_tier_width`` is below the slot width. td_mode "side0" encodes
     candidates with the opponent on roll, and side 1 minimizes."""
-    side0 = cfg.train.td_mode == "side0"
-    cand_flag = (1 - state.player) if side0 else state.player
-    sgn = torch.where(state.player == 0, 1.0, -1.0) if side0 else None
+    cand_flag, sgn = orient(state.player, cfg.train.td_mode)
     tier = cfg.model.actor_tier_width
     if cfg.model.fused_actor_kernel:
         v_obs = value_net.forward(params, encode_board(state.board, state.player), cfg.model)
@@ -251,7 +250,7 @@ def select_action(
         cand = encode_board(moves.boards, cand_flag[..., None])  # [B, A, 198]
         v = value_net.forward(params, torch.cat([obs[..., None, :], cand], -2), cfg.model)
         v_obs, v_moves = v[..., 0], v[..., 1:]
-    action = _sample(v_moves, moves.valid, sgn, gumbel_t1, temperature)
+    action = sample(v_moves, moves.valid, sgn, gumbel_t1, temperature)
     return action, v_obs, torch.zeros_like(moves.valid[..., 0])
 
 
@@ -268,13 +267,13 @@ def _select_action_tiered(
     idx1, ok1 = _select_set_bits(moves.valid, tier)  # [B, tier]
     t1 = board_take(moves.boards, idx1)
     v1 = fused_value(t1.data, cand_flag[..., None], params)  # [B, tier]
-    pick1 = _sample(v1, ok1, sgn, gumbel_t1, temperature)  # tier-space index
+    pick1 = sample(v1, ok1, sgn, gumbel_t1, temperature)  # tier-space index
     a1 = torch.gather(idx1, -1, pick1[..., None])[..., 0]
 
     wide, sel, sel_ok, in_sub, slot2 = _wide_rows(moves.count, tier, cfg)
     t2_flag = torch.broadcast_to(cand_flag, (b,))[sel]
     v2 = fused_value(moves.boards.data[sel], t2_flag[..., None], params)  # [wn, A]
-    a2 = _sample(
+    a2 = sample(
         v2, moves.valid[sel] & sel_ok[:, None], None if sgn is None else sgn[sel],
         gumbel_t2, temperature,
     )
@@ -322,7 +321,7 @@ def _select_action_split(
     slot_wd = torch.where(sm.dd_in, wn_w + sm.dd_slot, sm.ndw_slot)
     t1 = board_where((sm.ndw_in | sm.dd_in)[:, None], Board(t1_wd[slot_wd]), t1)
     v1 = fused_value(t1.data, cand_flag[..., None], params)  # [B, tier]
-    pick1 = _sample(v1, ok1, sgn, gumbel_t1, temperature)  # tier-space index
+    pick1 = sample(v1, ok1, sgn, gumbel_t1, temperature)  # tier-space index
     a1 = torch.gather(idx1, -1, pick1[..., None])[..., 0]
 
     # ---- tier 2: wide games at full width on a compacted sub-batch ----
@@ -336,7 +335,7 @@ def _select_action_split(
     t2_flag = torch.broadcast_to(cand_flag, (b,))[sel]
     t2_valid = sm.valid[sel] & sel_ok[:, None]
     v2 = fused_value(t2_boards.data, t2_flag[..., None], params)  # [wn, W]
-    a2 = _sample(v2, t2_valid, None if sgn is None else sgn[sel], gumbel_t2, temperature)
+    a2 = sample(v2, t2_valid, None if sgn is None else sgn[sel], gumbel_t2, temperature)
     action = torch.where(in_sub, a2[slot2], a1)
 
     # chosen board straight from the tier tensors (no full-width take)
@@ -358,8 +357,9 @@ def rollout_step(
     device: DeviceLike = None,
 ) -> Tuple[vec_env.EnvState, Transition]:
     """One lockstep self-play step for the whole batch: the 2-ply path when
-    ``cfg.twoply.enabled``, else the 1-ply split-planes path or (without
-    ``split_planes``) the 1-ply merged-moves path.
+    ``cfg.twoply.enabled``, else the 1-ply tiered pipeline
+    (``movegen.tiered``), the split-planes path or (without ``split_planes``)
+    the merged-moves path.
 
     ``state`` and ``params`` must lie on ``device`` (default ``cuda``).
     ``noise`` (a TwoPlyNoise for 2-ply, else a StepNoise) injects the step's
@@ -367,11 +367,10 @@ def rollout_step(
     dev = resolve_device(device)
     check_on(state.board.data, dev, "state")
     check_on(params["w1"], dev, "params")
-    if not cfg.twoply.enabled:
-        if cfg.movegen.tiered:
-            raise NotImplementedError(
-                "the rejected tiered pipeline (experimental/tiered.py) is ported last"
-            )
+    tiered = cfg.movegen.tiered and not cfg.twoply.enabled
+    if tiered and not cfg.model.fused_actor_kernel:
+        raise ValueError("the tiered pipeline needs the fused actor kernel")
+    if not (cfg.twoply.enabled or tiered):
         if cfg.movegen.split_planes and not (
             cfg.model.fused_actor_kernel and cfg.model.actor_tier_width
         ):
@@ -384,7 +383,14 @@ def rollout_step(
         raise TypeError(f"this step takes a {want.__name__}, got {type(noise).__name__}")
     temperature = _temperature(temperature, dev)
 
-    if cfg.twoply.enabled:
+    if tiered:
+        ti = xt.legal_moves_tiered(state.board, state.player, state.dice, cfg.movegen)
+        chosen, v_obs = xt.chosen_tiered(
+            params, state, ti, noise.gumbel_t1, noise.gumbel_t2, temperature, cfg
+        )
+        res = vec_env.step_chosen(state, ti.count, chosen, noise.next_dice, cfg.env)
+        count, overflow = ti.count, ti.overflow
+    elif cfg.twoply.enabled:
         moves = legal_moves(state.board, state.player, state.dice, cfg.movegen)
         action, v_obs = select_action_2ply(
             params, state, moves, noise.gumbel_2ply, noise.gumbel_1ply,
@@ -401,12 +407,7 @@ def rollout_step(
         count, overflow = moves.count, tier_ov | _overflow(moves)
     else:
         sm = legal_moves_split(state.board, state.player, state.dice, cfg.movegen)
-        side0 = cfg.train.td_mode == "side0"
-        cand_flag = (1 - state.player) if side0 else state.player
-        sgn = (
-            torch.where(state.player == 0, 1.0, -1.0).to(torch.float32)
-            if side0 else None
-        )
+        cand_flag, sgn = orient(state.player, cfg.train.td_mode)
         v_obs = value_net.forward(
             params, encode_board(state.board, state.player), cfg.model
         )

@@ -29,10 +29,12 @@ generator, seeded from (--seed, data index, the start version); the ranks
 of one model group share it. Rank 0 alone writes metrics and checkpoints,
 after gathering the model shards under tp. --fused-rollout at 1 x 1 runs
 the mesh step on a one-rank group. --remote-dir mirrors runs/ and
-checkpoints/ through fsspec.
+checkpoints/ through fsspec. --tiered trains through the tiered two-plane
+pipeline (``experimental.tiered``, a rejected experiment kept default-off):
+nd_tier 96 and dd_tier (48, 96, 96) unless set, and the fused actor kernel
+with a tier of 96, even without --production; --two-ply turns it off.
 
-Exit status 2, with the reason: --tiered (not ported, ROADMAP A16);
---model above 1 with the fused actor kernel (--production: the kernel
+Exit status 2, with the reason: --model above 1 with the fused actor kernel (--production: the kernel
 scores the full hidden layer, ROADMAP §C); a world size other than
 --data x --model; --remote-dir where fsspec does not import.
 
@@ -103,6 +105,19 @@ def build_config(args) -> Config:
         cfg = cfg.replace(
             movegen=MoveGenConfig() if args.full_widths else MoveGenConfig.fast(),
             model=ModelConfig(dtype="bfloat16", fused_actor_kernel=True, actor_tier_width=96),
+        )
+    if args.tiered:
+        # the two-plane tiered pipeline needs the fused actor kernel, so it
+        # is enabled here even without --production
+        cfg = cfg.replace(
+            movegen=dataclasses.replace(
+                cfg.movegen, tiered=True, nd_tier=cfg.movegen.nd_tier or 96,
+                dd_tier=cfg.movegen.dd_tier or (48, 96, 96),
+            ),
+            model=dataclasses.replace(
+                cfg.model, fused_actor_kernel=True,
+                actor_tier_width=cfg.model.actor_tier_width or 96,
+            ),
         )
     if args.max_timesteps is not None:
         cfg = cfg.replace(env=dataclasses.replace(cfg.env, max_timesteps=args.max_timesteps))
@@ -290,7 +305,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="fast movegen widths + bf16 fused actor forward "
                          "(the fused_value kernel on a card; learner stays f32)")
     ap.add_argument("--tiered", action="store_true",
-                    help="the rejected tiered pipeline: not ported (ROADMAP A16)")
+                    help="the tiered two-plane movegen pipeline (a rejected experiment; "
+                         "enables the fused actor kernel)")
     ap.add_argument("--full-widths", action="store_true",
                     help="with --production: keep the full parity movegen "
                          "widths (fast-vs-full quality control arm)")
@@ -312,8 +328,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def _refused(args, cfg: Config, world: int):
     """Why this run is refused (exit status 2), or None."""
-    if args.tiered:
-        return "--tiered is not ported (ROADMAP A16)"
     if args.model > 1 and cfg.model.fused_actor_kernel:
         return ("--model above 1 with the fused actor kernel (--production) is refused: "
                 "the kernel scores the full hidden layer (ROADMAP §C)")

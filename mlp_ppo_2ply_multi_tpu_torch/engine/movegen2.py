@@ -12,9 +12,17 @@ docstring for the algorithms and their reference citations):
   ``nd_tier`` for every game, full width ``nd_dedup_k`` on a sub-batch of the
   wide games), or else as one full-width pass through the fused tail
   (``experimental/nd_tail.py``: the CUDA kernel on a card; the 2-ply reply
-  path).
+  path). With ``nd_sig_dedup=False`` the dedup compares whole afterstates
+  instead (JAX's Gram dedup, ``_dup_earlier_mask``), and the single-pass
+  tail runs in plain PyTorch, where JAX runs its plain ``_nd_tail`` too.
+* ``enumerate_nondoubles_raw`` stops before the dedup: every present
+  candidate in insertion order with its signature and the exact
+  max-submove bit (``nd_has_pair_exact``), for the 2-ply scorer's
+  value-first replies.
 * Doubles: canonical multiset enumeration (submove ranks nondecreasing), so
-  no duplicates arise; run on a compacted sub-batch of the doubles games.
+  no duplicates arise; run on a compacted sub-batch of the doubles games,
+  two-tier there when ``dd_tier`` is set
+  (``experimental.tiered.doubles_two_tier``).
 
 The JAX version selects the k-th set bit with compare-reduces and one-hot
 matmuls because binary search and row gathers are slow on the TPU. Here a
@@ -22,9 +30,6 @@ select is ``cumsum`` + ``torch.searchsorted`` and every take is a gather;
 integer results are bit-identical. Slots that are not ok (beyond a row's
 count) hold whatever the clipped indices produce: consumers read only valid
 slots.
-
-Not ported: the Gram dedup (``nd_sig_dedup=False``), ``dd_tier`` and the
-value-first ``enumerate_nondoubles_raw*``; they raise or are absent.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ import torch
 from mlp_ppo_2ply_multi_tpu_torch.core.config import MoveGenConfig
 from mlp_ppo_2ply_multi_tpu_torch.core.tree import tmap
 from mlp_ppo_2ply_multi_tpu_torch.core.types import BAR, BEAR_OFF, NUM_POINTS
-from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board, apply_submove
+from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board, apply_submove, pack_board
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import (
     N_SLOTS,
     MoveSet,
@@ -79,6 +84,15 @@ def _select_set_bits(
     idx = torch.searchsorted(cs, ks, right=True)
     ok = ks < cs[..., -1:]
     return idx.clamp_max(n - 1), ok
+
+
+def _rows_in(mask: torch.Tensor, width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(in_sub, slot) for a sub-batch of the first ``width`` set rows of
+    ``mask`` [n], the rows ``_select_set_bits(mask, width)`` gathers: for
+    each row, whether the sub-batch holds it, and its place there (clipped
+    to [0, width))."""
+    rank = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    return mask & (rank < width), rank.clamp(0, width - 1)
 
 
 def _take0(x, idx: torch.Tensor):
@@ -213,6 +227,26 @@ def _dup_earlier_sig(sig: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     return (eq & earlier & ok[..., None, :]).any(-1)
 
 
+def _dup_earlier_mask(packed: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """dup[i] = exists valid j < i with an identical board: the board form of
+    ``_dup_earlier_sig`` (the Gram dedup, ``nd_sig_dedup=False``).
+
+    JAX decides "same board" by a squared distance from a bf16 Gram matrix
+    with f32 accumulation, exact for cells in [0, 15]. On a card a bf16 or
+    TF32 product may round, so here the equality is exact by construction:
+    each board's bytes are read as int64 words (8 cells a word, 52 cells
+    padded to 7 words) and two boards are equal when every word is. The
+    pairwise test is [..., K, K] bools, one word at a time."""
+    k = packed.shape[-2]
+    pad = (-packed.shape[-1]) % 8
+    words = torch.nn.functional.pad(packed, (0, pad)).contiguous().view(torch.int64)
+    eq = torch.ones((k, k), dtype=torch.bool, device=packed.device).tril(-1)
+    eq = eq & ok[..., None, :]
+    for w in words.unbind(-1):
+        eq &= w[..., :, None] == w[..., None, :]
+    return eq.any(-1)
+
+
 def _nd_tail_front(
     b0: Board,
     b1a: Board,
@@ -263,17 +297,23 @@ def _nd_tail(
     d_lo: torch.Tensor,
     K: int,
     a_max: int,
+    sig_dedup: bool = True,
 ):
     """Width-K back half of non-doubles enumeration: compact, build
-    afterstates, first-occurrence dedup (handle_move_types.py:196-221),
-    max-submove filter AFTER dedup (generate_all_moves.py:69-90), Q7 cap in
-    survivor-rank order without a final compaction. Returns (afterstates
-    [..., K], keep mask, pre-cap survivor total int32, and "present
-    2-submove candidate" bool[..., K])."""
+    afterstates, first-occurrence dedup (handle_move_types.py:196-221) by
+    canonical delta signature or, with ``sig_dedup=False``, by whole board
+    (``_dup_earlier_mask``), max-submove filter AFTER dedup
+    (generate_all_moves.py:69-90), Q7 cap in survivor-rank order without a
+    final compaction. Returns (afterstates [..., K], keep mask, pre-cap
+    survivor total int32, and "present 2-submove candidate" bool[..., K])."""
     after, kok, kpair, sig = _nd_tail_front(
         b0, b1a, b1b, valid, player, d_hi, d_lo, K
     )
-    keep = kok & ~_dup_earlier_sig(sig, kok)
+    if sig_dedup:
+        dup = _dup_earlier_sig(sig, kok)
+    else:
+        dup = _dup_earlier_mask(pack_board(after), kok)
+    keep = kok & ~dup
     has_pair = (keep & kpair).any(-1)
     keep = keep & (kpair | ~has_pair[..., None])
     rank = torch.cumsum(keep.to(torch.int32), -1, dtype=torch.int32)
@@ -338,7 +378,8 @@ def _nd_two_tier(
     n_pre = _popcount(valid)
     n = valid.shape[0]
     after_n, keep_n, pct_n, _ = _nd_tail(
-        board, pa.b1, pb.b1, valid, player, d_hi, d_lo, T, cfg.a_max
+        board, pa.b1, pb.b1, valid, player, d_hi, d_lo, T, cfg.a_max,
+        cfg.nd_sig_dedup,
     )
     wide = n_pre > T
     wn = max(8, n // cfg.nd_wide_div)
@@ -353,10 +394,9 @@ def _nd_two_tier(
         d_lo[sel],
         K,
         cfg.a_max,
+        cfg.nd_sig_dedup,
     )
-    rank = torch.cumsum(wide.to(torch.int32), 0, dtype=torch.int32) - 1
-    in_sub = wide & (rank < wn)
-    slot = rank.clamp(0, wn - 1)
+    in_sub, slot = _rows_in(wide, wn)
     pct = torch.where(in_sub, pct_w[slot], pct_n)
     overflow = (in_sub & ((n_pre > K) | (pct > cfg.a_max))) | (wide & ~in_sub)
     return NdPlanes(after_n, keep_n, after_w, keep_w, in_sub, slot, overflow)
@@ -373,13 +413,13 @@ def enumerate_nondoubles(
     (generate_all_moves.py:25-53). ``passes`` supplies precomputed
     (high-first, low-first) passes from ``die_tables`` (the 2-ply scorer).
 
-    The tail runs two-tier when ``0 < nd_tier < nd_dedup_k`` on a flat batch;
-    else as one full-width pass through ``experimental.nd_tail.nd_tail_fused``
-    (the CUDA kernel on a card, its plain version on the CPU), whatever
-    ``nd_tail_kernel`` says: the flag only chose the Pallas kernel on the
-    TPU."""
-    if not cfg.nd_sig_dedup:
-        raise NotImplementedError("the Gram dedup path is not ported")
+    The tail runs two-tier when ``0 < nd_tier < nd_dedup_k`` on a flat batch.
+    Else it is one full-width pass: with signature dedup through
+    ``experimental.nd_tail.nd_tail_fused`` (the CUDA kernel on a card, its
+    plain version on the CPU), whatever ``nd_tail_kernel`` says, since the
+    flag only chose the Pallas kernel on the TPU; with the Gram dedup
+    (``nd_sig_dedup=False``) in plain PyTorch on any device, as JAX runs its
+    plain ``_nd_tail`` there (the kernel dedups by signature only)."""
     pa, pb, valid, d_hi, d_lo = _nd_candidates(board, player, dice, passes)
     K, T = cfg.nd_dedup_k, cfg.nd_tier
     if T and T < K and valid.dim() == 2:
@@ -388,6 +428,12 @@ def enumerate_nondoubles(
         after = board_where(pl.in_sub[:, None], _take0(pl.after_w, pl.slot), narrow.boards)
         keep = torch.where(pl.in_sub[:, None], pl.keep_w[pl.slot], narrow.valid)
         overflow = pl.overflow
+    elif not cfg.nd_sig_dedup:
+        after, keep, pct, _ = _nd_tail(
+            board, pa.b1, pb.b1, valid, player, d_hi, d_lo, K, cfg.a_max, False
+        )
+        # candidates lost to the dedup-slot cap or the Q7 presented cap
+        overflow = (_popcount(valid) > K) | (pct > cfg.a_max)
     else:
         from mlp_ppo_2ply_multi_tpu_torch.experimental.nd_tail import nd_tail_fused
 
@@ -407,6 +453,53 @@ def enumerate_nondoubles(
         # candidates lost to the dedup-slot cap or the Q7 presented cap
         overflow = ((n_pre > K) | (pct > cfg.a_max)).reshape(bs)
     return MoveSet(boards=after, valid=keep, count=_popcount(keep), overflow=overflow)
+
+
+class RawMoves(NamedTuple):
+    """Undeduped non-doubles afterstates for consumers that want the top
+    values (the 2-ply scorer's value-first replies): every valid candidate
+    cell in insertion order (no dedup, no max-submove filter, no Q7 cap),
+    with the exact post-dedup ``has_pair`` bit those filters would give
+    (``nd_has_pair_exact``). Duplicates carry bit-equal boards and so
+    bit-equal values: a consumer that needs the top-N distinct values can
+    dedup after a top-M select at M^2 cost instead of K^2."""
+
+    boards: Board  # [..., K]
+    valid: torch.Tensor  # bool[..., K] presence (insertion order)
+    kpair: torch.Tensor  # bool[..., K] candidate is a 2-submove move
+    has_pair: torch.Tensor  # bool[...] exact max-submove filter bit
+    overflow: torch.Tensor  # bool[...] more than K pre-dedup candidates
+    sig: torch.Tensor  # int64[..., K] canonical delta signature (_submove_sig)
+
+
+def nd_has_pair_exact(pa: _Pass, pvB: torch.Tensor) -> torch.Tensor:
+    """Exact "some 2-submove move survives the reference's first-occurrence
+    dedup", without running the dedup: ``any_pair_A | any(pvB)``, with
+    ``pvB`` the skip-masked pass-B pair grid (generate_all_moves.py:40-50).
+    Dedup can never drop every pair while leaving singles: pass-A pairs come
+    first in insertion order, and a pass-B pair equals an earlier single
+    only by a chained bear-off, which implies a pass-A pair or a pass B the
+    reverse-order skip zeroes (the JAX ``nd_has_pair_exact`` has the
+    argument in full)."""
+    return pa.any_pair | pvB.flatten(-2).any(-1)
+
+
+def enumerate_nondoubles_raw(
+    board: Board,
+    player: torch.Tensor,
+    dice: torch.Tensor,
+    K: int,
+    passes: Optional[Tuple[_Pass, _Pass]] = None,
+) -> RawMoves:
+    """Non-doubles enumeration without the dedup, filter and cap tail (see
+    RawMoves), in exact reference insertion order."""
+    pa, pb, valid, d_hi, d_lo = _nd_candidates(board, player, dice, passes)
+    after, kok, kpair, sig = _nd_tail_front(
+        board, pa.b1, pb.b1, valid, player, d_hi, d_lo, K
+    )
+    skip_b = (~pa.any_pair) & (_popcount(pa.single_valid) == 1)
+    pvB = pb.pair_valid & ~skip_b[..., None, None]
+    return RawMoves(after, kok, kpair, nd_has_pair_exact(pa, pvB), _popcount(valid) > K, sig)
 
 
 # ---------------------------------------------------------------------------
@@ -627,6 +720,29 @@ def enumerate_nondoubles_batched(
     return _unflatten_moveset(ms, board.batch_shape)
 
 
+def enumerate_nondoubles_raw_batched(
+    board: Board,
+    player: torch.Tensor,
+    dice: torch.Tensor,
+    K: int,
+    passes: Optional[Tuple[_Pass, _Pass]] = None,
+) -> RawMoves:
+    """``enumerate_nondoubles_raw`` over any batch shape (the 2-ply scorer's
+    [chunk, ..., candidates] fan-out)."""
+    flat, fb, fp, fd = _flatten_batch(board, player, dice, (2,))
+    fpasses = None if passes is None else (flat(passes[0]), flat(passes[1]))
+    raw = enumerate_nondoubles_raw(fb, fp, fd, K, fpasses)
+    bs = board.batch_shape
+    return RawMoves(
+        boards=Board(data=raw.boards.data.reshape(*bs, K, raw.boards.data.shape[-1])),
+        valid=raw.valid.reshape(*bs, K),
+        kpair=raw.kpair.reshape(*bs, K),
+        has_pair=raw.has_pair.reshape(bs),
+        overflow=raw.overflow.reshape(bs),
+        sig=raw.sig.reshape(*bs, K),
+    )
+
+
 def enumerate_doubles_batched(
     board: Board,
     player: torch.Tensor,
@@ -649,9 +765,10 @@ def legal_moves(
     doubles set on a compacted batch/``dd_subbatch_div`` sub-batch of the
     games that rolled doubles (the whole batch when n <= 64 or the divisor
     is 0), merged per game at width ``max`` of the two. A doubles game
-    beyond the sub-batch presents zero moves and is flagged as overflow."""
-    if cfg.dd_tier:
-        raise NotImplementedError("the dd_tier path is not ported")
+    beyond the sub-batch presents zero moves and is flagged as overflow.
+    ``dd_tier`` runs the sub-batch two-tier
+    (``experimental.tiered.doubles_two_tier``); as in JAX it is read only
+    there, not on the whole-batch branch."""
     bs = board.batch_shape
     _, fboard, fplayer, fdice = _flatten_batch(board, player, dice, (2,))
     n = fplayer.shape[0]
@@ -663,18 +780,20 @@ def legal_moves(
     else:
         w_dd = max(8, -(-n // cfg.dd_subbatch_div))
         sel_idx, sel_ok = _select_set_bits(is_double, w_dd)
-        sub = enumerate_doubles(
-            _take0(fboard, sel_idx), fplayer[sel_idx], fdice[sel_idx, 0], cfg
-        )
+        sub_args = (_take0(fboard, sel_idx), fplayer[sel_idx], fdice[sel_idx, 0])
+        if cfg.dd_tier:
+            from mlp_ppo_2ply_multi_tpu_torch.experimental.tiered import doubles_two_tier
+
+            sub = doubles_two_tier(*sub_args, sel_ok, cfg)
+        else:
+            sub = enumerate_doubles(*sub_args, cfg)
         sub_valid = sub.valid & sel_ok[:, None]
-        raw_slot = torch.cumsum(is_double.to(torch.int32), 0, dtype=torch.int32) - 1
-        in_range = raw_slot < w_dd
-        slot = raw_slot.clamp(0, w_dd - 1)
+        dd_in, slot = _rows_in(is_double, w_dd)  # read only where is_double
         dd = MoveSet(
             boards=_take0(sub.boards, slot),
-            valid=sub_valid[slot] & in_range[:, None],
-            count=torch.where(in_range, sub.count[slot], 0),
-            overflow=torch.where(in_range, sub.overflow[slot], True),
+            valid=sub_valid[slot] & dd_in[:, None],
+            count=torch.where(dd_in, sub.count[slot], 0),
+            overflow=torch.where(dd_in, sub.overflow[slot], True),
         )
     width = max(nd.valid.shape[-1], dd.valid.shape[-1])
     nd, dd = _pad_entries(nd, width), _pad_entries(dd, width)
@@ -716,17 +835,14 @@ def legal_moves_split(
     board: Board, player: torch.Tensor, dice: torch.Tensor, cfg: MoveGenConfig
 ) -> SplitMoves:
     """Plane-form legal moves. Requires the canonical engine, the tiered nd
-    tail (0 < nd_tier < nd_dedup_k), the doubles sub-batch and signature
-    dedup; flat [n] batch."""
+    tail (0 < nd_tier < nd_dedup_k) and the doubles sub-batch; flat [n]
+    batch. The nd tail dedups as ``nd_sig_dedup`` says; ``dd_tier`` is not
+    read (JAX's ``legal_moves_split`` runs the single doubles chain)."""
     check_canonical(cfg)
     if not (cfg.nd_tier and cfg.nd_tier < cfg.nd_dedup_k):
         raise ValueError("legal_moves_split needs 0 < nd_tier < nd_dedup_k")
     if cfg.dd_subbatch_div <= 0:
         raise ValueError("legal_moves_split needs the doubles sub-batch")
-    if not cfg.nd_sig_dedup or cfg.dd_tier:
-        raise NotImplementedError(
-            "the Gram dedup and dd_tier paths are not ported"
-        )
     if len(board.batch_shape) != 1:
         raise ValueError("legal_moves_split takes a flat [n] batch")
     n = board.batch_shape[0]
@@ -743,10 +859,7 @@ def legal_moves_split(
         _take0(board, sel_idx), player[sel_idx], dice[sel_idx, 0], cfg
     )
     sub_valid = sub.valid & sel_ok[:, None]
-    raw_slot = torch.cumsum(is_double.to(torch.int32), 0, dtype=torch.int32) - 1
-    in_range = raw_slot < w_dd
-    dd_slot = raw_slot.clamp(0, w_dd - 1)
-    dd_in = is_double & in_range
+    dd_in, dd_slot = _rows_in(is_double, w_dd)
 
     W = max(cfg.a_max, cfg.nd_dedup_k, sub.valid.shape[-1])
     pad_w = lambda v: torch.nn.functional.pad(v, (0, W - v.shape[-1]))
@@ -755,7 +868,7 @@ def legal_moves_split(
     )
     dd_valid_rows = pad_w(sub_valid[dd_slot]) & dd_in[:, None]
     valid = torch.where(is_double[:, None], dd_valid_rows, nd_valid)
-    dd_overflow = torch.where(in_range, sub.overflow[dd_slot], True)
+    dd_overflow = torch.where(dd_in, sub.overflow[dd_slot], True)
     return SplitMoves(
         nd_boards=pl.after_n,
         nd_keep=pl.keep_n,

@@ -11,10 +11,22 @@ semantics, with the reference's file:line, in that module's docstring):
 * score = alpha x V(candidate) - beta x E[opponent response];
 * fewer than k legal moves: plain 1-ply softmax selection.
 
-Only the unrolled scorer (``TwoPlyConfig.unroll_rolls``, ``roll_chunk <= 1``)
-is ported: its 15 non-double rolls and 6 doubles run one after the other in
-``ROLLS`` order, the non-doubles first, which is the JAX accumulation order.
-The scan scorer and the value-first dedup (``value_first_m``) raise.
+Two scorers compute the opponent response, with JAX's accumulation order:
+
+* the unrolled scorer (``TwoPlyConfig.unroll_rolls``, ``roll_chunk <= 1``,
+  no ``value_first_m``): the 15 non-double rolls, then the 6 doubles, in
+  ``ROLLS`` order, each at its own widths (``nd_reply_widths``,
+  ``dd_reply_widths``) and added to the total in turn;
+* the scan scorer (otherwise; JAX's ``lax.scan`` over roll chunks, here a
+  Python loop over them): ``roll_chunk`` C rolls folded into the batch, the
+  last chunk padded with repeats of its final roll at probability 0; each
+  chunk is summed over its C axis and then added to the total, so at C = 1
+  it equals the unrolled scorer bit for bit at equal widths. With
+  ``value_first_m`` M (a rejected experiment, default 0) the non-double
+  replies are not deduped: the top M by value are, and the mean takes the
+  first ``top_n_responses`` distinct ones; a row where that may differ from
+  the reference-order dedup is flagged inexact.
+
 Sampling takes injected Gumbel noise: ``argmax(logits + gumbel)`` is what
 ``jax.random.categorical`` computes.
 """
@@ -32,7 +44,7 @@ from mlp_ppo_2ply_multi_tpu_torch.core.device import device_constant
 from mlp_ppo_2ply_multi_tpu_torch.core.tree import tmap
 from mlp_ppo_2ply_multi_tpu_torch.encoder.features import encode_board
 from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
-from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
+from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board, pack_board
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import MoveSet, board_take, slot_stats
 from mlp_ppo_2ply_multi_tpu_torch.model import value_net
 from mlp_ppo_2ply_multi_tpu_torch.ops.fused_value import fused_value
@@ -124,19 +136,161 @@ def weighted_opponent_response(
 ):
     """E[opponent response] per candidate board: f32 [..., K] for boards of
     batch shape [..., K] and ``opp`` [...]. With ``return_flags`` also a
-    bool [..., K] "inexact" flag: a per-roll reply width
-    (``nd_reply_widths``/``dd_reply_widths``) truncated the replies."""
+    bool [..., K] "inexact" flag: in the unrolled scorer a per-roll reply
+    width (``nd_reply_widths``/``dd_reply_widths``) truncated the replies,
+    in the value-first scan more than M - top_n of the top M replies were
+    duplicates. The unrolled scorer runs unless ``unroll_rolls`` is off,
+    ``roll_chunk`` is above 1 or ``value_first_m`` is set (JAX's
+    dispatch); else the scan scorer."""
     tw = cfg.twoply
-    if not tw.unroll_rolls or tw.roll_chunk > 1:
-        raise NotImplementedError("only the unrolled 2-ply scorer is ported")
-    if tw.value_first_m:
-        raise NotImplementedError("the value-first reply dedup is not ported")
-    out = _wor_unrolled(params, boards, opp, cfg, reply_movegen_cfg(cfg))
+    mg = reply_movegen_cfg(cfg)
+    if tw.unroll_rolls and tw.roll_chunk <= 1 and not tw.value_first_m:
+        out = _wor_unrolled(params, boards, opp, cfg, mg)
+    else:
+        out = _wor_scan(params, boards, opp, cfg, mg)
     return out if return_flags else out[0]
 
 
 def _at(tree, i: int):
     return tmap(lambda a: a[i], tree)
+
+
+def _at_many(tree, idx):
+    """The entries ``idx`` (a host sequence) of every leaf's leading axis,
+    stacked: device ops only, so the step stays capturable."""
+    return tmap(lambda a: torch.stack([a[i] for i in idx]), tree)
+
+
+def _chunks(c: int, *arrs):
+    """Stack roll-constant host arrays into chunks of ``c``; the last chunk
+    is padded with repeats of its final roll whose probability (always the
+    second array) is zeroed. Each result is [n_chunks, c, ...]."""
+    n = len(arrs[0])
+    pad = (-n) % c
+    out = []
+    for i, a in enumerate(arrs):
+        a = np.asarray(a)
+        a = np.concatenate([a, np.repeat(a[-1:], pad, axis=0)], axis=0)
+        if i == 1 and pad:
+            a[-pad:] = 0.0
+        out.append(a.reshape(-1, c, *a.shape[1:]))
+    return out
+
+
+def _top_mean(top: torch.Tensor, use: torch.Tensor) -> torch.Tensor:
+    """Mean of the ``use`` entries of ``top`` (at least one counted)."""
+    n = use.to(torch.float32).sum(-1).clamp_min(1.0)
+    return torch.where(use, top, 0.0).sum(-1) / n
+
+
+def _wor_scan(
+    params, boards: Board, opp: torch.Tensor, cfg: Config, mg: MoveGenConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan scorer (JAX ``weighted_opponent_response``'s ``lax.scan``
+    branch): 5 chunks of the 15 non-double rolls at C = 3 (15 at C = 1),
+    then the 6 doubles, each chunk's C rolls folded into the batch
+    ([C, ..., K] boards), every roll at the uniform ``reply_movegen_cfg``
+    widths. A chunk's scores are summed over C, then added to the total."""
+    tw = cfg.twoply
+    topn, cap = tw.top_n_responses, tw.small_double_cap
+    c = max(1, tw.roll_chunk)
+    bs = boards.batch_shape
+    dev = boards.data.device
+    opp_k = opp[..., None]  # [..., 1] broadcasts over the candidates
+    bc = Board(data=boards.data[None].expand(c, *boards.data.shape))
+    lead = (slice(None),) + (None,) * len(bs)  # [C] -> [C, 1, ...]
+    ones = (1,) * len(bs)
+
+    def score_moveset(ms: MoveSet, probs_c: torch.Tensor, cap_active) -> torch.Tensor:
+        """The probability-weighted sum over a chunk's C rolls; "the first
+        cap moves" by valid-entry rank (the valid mask need not be
+        contiguous)."""
+        rank = torch.cumsum(ms.valid.to(torch.int32), -1, dtype=torch.int32)
+        valid = ms.valid & ((rank <= cap) | ~cap_active[lead + (None,)])
+        v = oriented_values(params, ms.boards, opp_k[..., None], cfg)  # [C, ..., K, A]
+        top, _ = topk_small(torch.where(valid, v, _NEG), topn)
+        avg = _top_mean(top, top > _NEG / 2)
+        return torch.where(valid.any(-1), avg * probs_c[lead], 0.0).sum(0)
+
+    def score_raw(raw: movegen2.RawMoves, probs_c: torch.Tensor):
+        """Value-first scoring of an undeduped reply set: values over every
+        present candidate (max-submove filter from the exact has_pair), the
+        top M by value, dedup of only those M (by signature, or by board
+        with ``nd_sig_dedup=False``), the mean of the first top_n distinct.
+        Exact unless more than M - top_n of the top M are duplicates
+        (flagged): duplicates carry bit-equal values."""
+        m = tw.value_first_m
+        if m < topn:
+            raise ValueError("value_first_m must cover top_n_responses")
+        vmask = raw.valid & (raw.kpair | ~raw.has_pair[..., None])
+        v = oriented_values(params, raw.boards, opp_k[..., None], cfg)
+        top, ti = topk_small(torch.where(vmask, v, _NEG), m)  # [C, ..., K, m]
+        ok = top > _NEG / 2
+        if cfg.movegen.nd_sig_dedup:
+            dup = movegen2._dup_earlier_sig(torch.gather(raw.sig, -1, ti), ok)
+        else:
+            dup = movegen2._dup_earlier_mask(pack_board(board_take(raw.boards, ti)), ok)
+        surv = ok & ~dup
+        rank = torch.cumsum(surv.to(torch.int32), -1, dtype=torch.int32)
+        avg = _top_mean(top, surv & (rank <= topn))
+        n_present = vmask.sum(-1)
+        # only this path's own failure: too many duplicates among the top M
+        # (raw.overflow, the pre-dedup count above reply_a_max, truncates
+        # both paths alike and is not folded in)
+        inexact = (n_present > m) & (surv.sum(-1) < topn)
+        total = torch.where(vmask.any(-1), avg * probs_c[lead], 0.0).sum(0)
+        return total, inexact.any(0)
+
+    # the first-ply tables, children and root contexts of all six dies,
+    # once; each chunk takes its rolls' dies from the leading [6] axis
+    s1_all, b1_all = movegen2.die_tables(boards, opp_k)
+    ctx_all = movegen2.die_ctxs(boards, opp_k)
+
+    nd = ROLLS[:, 0] != ROLLS[:, 1]
+    nd_rolls, nd_probs = _chunks(c, ROLLS[nd], PROBS[nd])
+    dd_dies, dd_probs, dd_small = _chunks(c, ROLLS[~nd][:, 0], PROBS[~nd], SMALL_DOUBLE[~nd])
+    key = f"expectimax.scan{c}"
+    nd_dice = device_constant(key + ".nd_rolls", nd_rolls.astype(np.int64), dev)
+    nd_p = device_constant(key + ".nd_probs", nd_probs, dev)
+    dd_d = device_constant(key + ".dd_dies", dd_dies.astype(np.int64), dev)
+    dd_p = device_constant(key + ".dd_probs", dd_probs, dev)
+    dd_cap = device_constant(key + ".dd_small", dd_small, dev)
+    no_cap = device_constant(f"{key}.no_cap", np.zeros(c, bool), dev)
+
+    total = torch.zeros(bs, dtype=torch.float32, device=dev)
+    flags = torch.zeros(bs, dtype=torch.bool, device=dev)
+    for j, rolls_c in enumerate(nd_rolls):
+        hi = [max(r) - 1 for r in rolls_c.tolist()]  # die index of each roll
+        lo = [min(r) - 1 for r in rolls_c.tolist()]
+        dice = nd_dice[j].reshape(c, *ones, 2).expand(c, *bs, 2)
+        d_hi = dice.amax(-1)
+        d_lo = dice.amin(-1)
+        pa = movegen2._run_pass_pre(
+            _at_many(s1_all, hi), _at_many(b1_all, hi), opp_k[None], d_lo,
+            ctx=_at_many(ctx_all, lo),
+        )
+        pb = movegen2._run_pass_pre(
+            _at_many(s1_all, lo), _at_many(b1_all, lo), opp_k[None], d_hi,
+            ctx=_at_many(ctx_all, hi),
+        )
+        if tw.value_first_m:
+            raw = movegen2.enumerate_nondoubles_raw_batched(
+                bc, opp_k[None], dice, mg.a_max, passes=(pa, pb)
+            )
+            t, ix = score_raw(raw, nd_p[j])
+            total, flags = total + t, flags | ix
+        else:
+            ms = movegen2.enumerate_nondoubles_batched(
+                bc, opp_k[None], dice, mg, passes=(pa, pb)
+            )
+            total = total + score_moveset(ms, nd_p[j], no_cap)
+    for j, dies_c in enumerate(dd_dies):
+        die = dd_d[j].reshape(c, *ones).expand(c, *bs)
+        ms = movegen2.enumerate_doubles_batched(
+            bc, opp_k[None], die, mg, s1=_at_many(s1_all, [d - 1 for d in dies_c.tolist()])
+        )
+        total = total + score_moveset(ms, dd_p[j], dd_cap[j])
+    return total, flags
 
 
 def _wor_unrolled(
@@ -158,9 +312,7 @@ def _wor_unrolled(
         v = oriented_values(params, ms.boards, opp_k[..., None], cfg)
         v = torch.where(valid, v, _NEG)
         top, _ = topk_small(v, topn)
-        present = top > _NEG / 2
-        n = present.to(torch.float32).sum(-1).clamp_min(1.0)
-        avg = torch.where(present, top, 0.0).sum(-1) / n
+        avg = _top_mean(top, top > _NEG / 2)
         return torch.where(valid.any(-1), avg * prob, 0.0)
 
     # first-ply tables, children and root contexts for all six dies, and the

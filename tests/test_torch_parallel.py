@@ -296,7 +296,7 @@ def test_cli_fused_rollout_runs_the_mesh_step_at_one_by_one(tmp_path):
     (["--model", "2", "--production"], "fused actor kernel"),
     (["--data", "2"], "world has 1"),
     (["--model", "2"], "world has 1"),
-    (["--tiered"], "A16"),
+    (["--tiered", "--model", "2"], "fused actor kernel"),
 ], ids=["tp_with_the_fused_kernel", "data_above_the_world", "model_above_the_world",
         "tiered"])
 def test_cli_refusals_exit_2(tmp_path, capsys, flags, reason):

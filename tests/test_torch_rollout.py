@@ -306,16 +306,20 @@ def test_rollout_loop_on_cpu_is_seeded_and_conserves_checkers():
 
 
 def test_rollout_step_rejects_unported_branches():
-    """The tiered pipeline still raises; the merged 1-ply actor
-    (tests/test_torch_train.py) and 2-ply (tests/test_torch_twoply*.py) are
-    ported: their steps run, and the 2-ply step refuses the 1-ply noise
-    type."""
+    """Every branch is ported: the tiered pipeline (tests/test_torch_tiered.py)
+    runs once dd_tier is set and refuses a config without it, as JAX
+    asserts; the merged 1-ply actor (tests/test_torch_train.py) and 2-ply
+    (tests/test_torch_twoply*.py) steps run, and the 2-ply step refuses the
+    1-ply noise type."""
     base = _cfg(tcfg, "reference")
     params = tV.init_params(base.model, device="cpu")
     st = tE.reset(16, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tiered = base.replace(movegen=dataclasses.replace(base.movegen, tiered=True))
+    tiered = base.replace(movegen=dataclasses.replace(base.movegen, tiered=True))
+    with pytest.raises(ValueError, match="dd_tier"):
         tR.rollout_step(params, st, 1.0, tiered, True, device="cpu")
+    tiered = tiered.replace(movegen=dataclasses.replace(tiered.movegen, dd_tier=(8, 8, 16)))
+    new, t = tR.rollout_step(params, st, 1.0, tiered, True, gen=torch.Generator(), device="cpu")
+    assert bool(t.recorded.any()) and bool(tB.checker_conservation_ok(new.board).all())
     merged = base.replace(movegen=dataclasses.replace(base.movegen, split_planes=False))
     new, t = tR.rollout_step(params, st, 1.0, merged, True, gen=torch.Generator(), device="cpu")
     assert bool(t.recorded.any()) and bool(tB.checker_conservation_ok(new.board).all())

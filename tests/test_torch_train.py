@@ -18,6 +18,7 @@
 import argparse
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import signal
@@ -224,6 +225,8 @@ def _ns(**kw):
     {"small_movegen": True}, {"two_ply": True}, {"two_ply": True, "production": True},
     {"max_timesteps": 40, "small_movegen": True, "mode": "sync", "td_mode": "side0",
      "per_episode_updates": True, "seed": 3, "batch_games": 64},
+    {"tiered": True}, {"tiered": True, "production": True},
+    {"tiered": True, "small_movegen": True}, {"tiered": True, "two_ply": True},
 ], ids=lambda f: "-".join(f) or "default")
 def test_build_config_matches_jax(flags):
     want = dataclasses.asdict(jtrain.build_config(_ns(**flags)))
@@ -353,19 +356,38 @@ def test_sigterm_leaves_a_final_checkpoint(tmp_path, monkeypatch):
 
 
 def test_train_cli_refuses_unported_flags(tmp_path, capsys):
-    """--tiered is still unported (A16); since A15, --data/--model run on a
-    mesh of that many ranks, so at world 1 they exit 2 naming the world
-    size, and --model above 1 with the fused kernel exits 2 naming it
-    (--fused-rollout and --remote-dir run: tests/test_torch_parallel.py,
+    """--data/--model run on a mesh of that many ranks, so at world 1 they
+    exit 2 naming the world size, and --model above 1 with the fused kernel
+    exits 2 naming it; --tiered runs
+    (``test_train_cli_tiered_runs_one_update``) and turns the fused kernel
+    on, so with --model 2 it exits 2 naming the kernel (--fused-rollout and
+    --remote-dir run: tests/test_torch_parallel.py,
     tests/test_torch_remote.py)."""
     for flags, reason in ((["--data", "2"], "world has 1"), (["--model", "2"], "world has 1"),
                           (["--model", "2", "--production"], "fused actor kernel"),
-                          (["--tiered"], "ROADMAP A16")):
+                          (["--tiered", "--model", "2"], "fused actor kernel")):
         with pytest.raises(SystemExit) as e:
             _cli(tmp_path, *flags)
         assert e.value.code == 2
         assert reason in capsys.readouterr().err
     assert not (tmp_path / "run").exists()
+
+
+def test_train_cli_tiered_runs_one_update(tmp_path, monkeypatch):
+    """``apps.train --tiered --device cpu`` trains through the tiered
+    pipeline: one update, a finite loss, every step's moves from
+    ``legal_moves_tiered``."""
+    from mlp_ppo_2ply_multi_tpu_torch.experimental import tiered as txt
+
+    calls = []
+    real = txt.legal_moves_tiered
+    monkeypatch.setattr(txt, "legal_moves_tiered",
+                        lambda *a: calls.append(1) or real(*a))
+    rc = _cli(tmp_path, "--tiered", "--small-movegen", "--batch-games", "16",
+              "--updates", "1", "--steps-per-update", "4")
+    assert rc == 0 and len(calls) == 4
+    (line,), _ = _records(tmp_path)
+    assert math.isfinite(line["loss"])
 
 
 def test_merged_rollout_loop_on_cpu_conserves_checkers():

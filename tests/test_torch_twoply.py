@@ -348,14 +348,25 @@ def test_rollout_loop_2ply_on_cpu_is_seeded_and_conserves_checkers():
 
 
 def test_scan_scorer_and_value_first_raise():
-    cfg = twoply_cfg(tcfg, "side0", False)
-    params = tV.init_params(cfg.model, device="cpu")
+    """The scan scorer and the value-first replies used to raise; they run
+    now (held to JAX in tests/test_torch_twoply_scan.py): finite scores of
+    the candidates' shape, and at the uniform reply widths the scan at
+    chunk 1 equals the unrolled scorer bit for bit."""
+    cfg = twoply_cfg(tcfg, "side0", False, dd_reply_widths=())
+    params = tV.init_params(cfg.model, torch.Generator().manual_seed(0), device="cpu")
     boards = tB.initial_board((2, 4), "cpu")
     opp = torch.zeros(2, dtype=torch.int32)
+    unrolled = tX.weighted_opponent_response(params, boards, opp, cfg)
     for tw in (
         dataclasses.replace(cfg.twoply, unroll_rolls=False),
         dataclasses.replace(cfg.twoply, roll_chunk=3),
         dataclasses.replace(cfg.twoply, value_first_m=16),
     ):
-        with pytest.raises(NotImplementedError):
-            tX.weighted_opponent_response(params, boards, opp, cfg.replace(twoply=tw))
+        w, flags = tX.weighted_opponent_response(
+            params, boards, opp, cfg.replace(twoply=tw), return_flags=True)
+        assert w.shape == (2, 4) and flags.shape == (2, 4)
+        assert bool(torch.isfinite(w).all()) and not bool(flags.any())
+        if not tw.unroll_rolls:
+            assert torch.equal(w, unrolled)
+        else:
+            torch.testing.assert_close(w, unrolled, rtol=RTOL, atol=1e-6)
