@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's two self-play paths, its training loop (on one
-card and as the mesh train step), its evaluation and play CLIs and the
-row-take probe on one CUDA card and check them.
+card and as the mesh train step), its evaluation and play CLIs, the
+row-take probe and the rules-parity and quality tools on one CUDA card and
+check them.
 
 Run from the repository root, on a machine with one NVIDIA H100:
 
@@ -34,7 +35,12 @@ step (``experimental.tiered``, ``train --tiered``) at B = 4096, whose wide
 plane runs nd_tail at K = 288 and both its planes fused_value; the Gram
 dedup (``nd_sig_dedup=False``) on the production step; the 2-ply scan
 scorer and value-first replies at B = 1024; and the probe's one-hot
-product modes. Phases, in order; any failure exits non-zero:
+product modes. Paths 16-19 are the repo's rules-parity and quality tools
+(``scripts.stress_movegen2``, ``scripts.twoply_decision_guard``,
+``scripts.run_parity_trainer`` with ``scripts.eval_curve``, and the
+evaluate CLI's tuned-vs-exact 2-ply head-to-head), whose merged legal
+moves and reply enumerations run nd_tail at ``Config()``'s widths.
+Phases, in order; any failure exits non-zero:
 
 1. device: torch's view of the card and nvidia-smi's name and power limit;
 2. build: one nvcc per kernel source, started together (seconds,
@@ -184,13 +190,31 @@ product modes. Phases, in order; any failure exits non-zero:
 34. the probe's modes with no Pallas kernel (``scripts.probe_take`` xla,
     bf16acc, int8, int8acc, f32, packed, ohonly, dotonly, bf16T) in-process
     at N = 4096: each exact (ohonly n/a), with its ms;
+35. the rules stress, 4,096 positions of each config against the rules
+    oracle: (a) the merged legal moves (nd_tail at [128, K = 576], one
+    launch a batch, bit-equal to its plain version and timed), (b) the
+    production ``legal_moves_split``; 0 mismatches, overflow rows and
+    positions/s;
+36. the tuned-vs-exact 2-ply decision guard on 1,024 self-play positions:
+    16 nd_tail launches a score call, each call bit-equal to its plain
+    version, the card's slots and scores equal to the CPU path's on 32
+    (rtol 1e-5, atol 1e-6), agreement >= 0.99, the report's fields;
+37. two updates of the parity trainer (checkpoints at episodes 0, 200 and
+    400, read back bitwise; JAX's train.jsonl keys; one nd_tail launch a
+    rollout step), then the learning curve over them at 256 games: exactly
+    2 graphs captured, each checkpoint's winners equal to a separate
+    ``play_match`` call;
+38. ``apps.evaluate`` tuned 2-ply against exact 2-ply at 256 games: 31
+    nd_tail launches a match step, the win rate and wall seconds;
 
 then the kernels line (launches summed over every path's timed run) and the
 result line. Phases 4, 7, 10 and 13 time the eager step; the training runs
 (16-18) go through the graphed rollouts, as ``apps.train`` does.
 
-It imports torch, numpy and the port only. Without CUDA, or without the
-port beside it, it exits non-zero and prints no result.
+It imports torch, numpy and the port only. It looks for the port first:
+copied alone into a directory without ``mlp_ppo_2ply_multi_tpu_torch``
+beside it, it prints one line naming the package and the directory and
+exits 1; then, without CUDA, it exits 2. Neither prints a result.
 """
 from __future__ import annotations
 
@@ -200,6 +224,7 @@ import functools
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -210,6 +235,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
+PORT_PACKAGE = "mlp_ppo_2ply_multi_tpu_torch"
 
 B_PROD = 4096
 B_SMALL = 256
@@ -317,8 +343,13 @@ def _port():
     from mlp_ppo_2ply_multi_tpu_torch.scripts import multiprocess_distributed
     from mlp_ppo_2ply_multi_tpu_torch.io import remote
     from mlp_ppo_2ply_multi_tpu_torch.experimental import tiered
+    from mlp_ppo_2ply_multi_tpu_torch.oracle import sampling
+    from mlp_ppo_2ply_multi_tpu_torch.scripts import eval_curve, run_parity_trainer
+    from mlp_ppo_2ply_multi_tpu_torch.scripts import stress_movegen2, twoply_decision_guard
 
     return dict(
+        sampling=sampling, stress=stress_movegen2, guard=twoply_decision_guard,
+        curve=eval_curve, parity=run_parity_trainer,
         tiered=tiered,
         sharding=sharding, distributed=distributed, profiling=profiling, ring=ring_buffer,
         mpd=multiprocess_distributed, remote=remote,
@@ -1903,25 +1934,33 @@ def phase_eval_graph_vs_eager(P, dev, card):
     seen = eval_nd_inputs(P, params, cfg, dev)
     if [(a[0].shape[0], a[7], a[8]) for a in seen] != [(B_EVAL, 576, 512)]:
         raise AssertionError(f"[25] unexpected eval nd_tail calls {[(a[0].shape, a[7:]) for a in seen]}")
-    args = seen[0]
+    out["nd_tail_k576"] = nd_one_launch(P, seen[0], dev, "[25] nd_tail at K = 576")
+    log(f"[25 eval graph vs eager] nd_tail at K = 576 on the eval path, bit-equal to its plain "
+        f"version: {json.dumps(out['nd_tail_k576'])} {card}")
+    return out
+
+
+def nd_one_launch(P, args, dev, what):
+    """One captured nd_tail call: the kernel bit-equal to its plain version
+    (after at kept slots), then one launch timed queued ahead of the card
+    (twice, around the plain version's time), with its bound."""
+    nd = P["nd"]
     K, a_max = args[7], args[8]
     got, want = nd.nd_tail_fused(*args), nd.nd_tail_plain(*args)
     _sync(dev)
     keep = want[1]
-    if not (torch.equal(got[1], want[1]) and all(torch.equal(x, y) for x, y in zip(got[2:], want[2:]))
+    if not (torch.equal(got[1], want[1])
+            and all(torch.equal(x, y) for x, y in zip(got[2:], want[2:]))
             and torch.equal(got[0][keep], want[0][keep])):
-        raise AssertionError("[25] nd_tail at K = 576 differs from its plain version")
+        raise AssertionError(f"{what} differs from its plain version")
     ops = nd.kernel_operands(*args[:7], K)
     kern = functools.partial(nd.launch_kernel, *ops, K, a_max)
     k1 = _queued_ms_per_round([kern], dev)
     plain_ms = _time_ms(lambda: nd.nd_tail_plain(*args), dev, 5)
     k2 = _queued_ms_per_round([kern], dev)
     bound = nd_tail_bound(args[0], K)
-    out["nd_tail_k576"] = dict(ms_per_launch=(k1 + k2) / 2, runs_ms=[k1, k2], plain_ms=plain_ms,
-                               **bound, bound_share=bound["bound_ms"] / ((k1 + k2) / 2))
-    log(f"[25 eval graph vs eager] nd_tail at K = 576 on the eval path, bit-equal to its plain "
-        f"version: {json.dumps(out['nd_tail_k576'])} {card}")
-    return out
+    return dict(ms_per_launch=(k1 + k2) / 2, runs_ms=[k1, k2], plain_ms=plain_ms,
+                **bound, bound_share=bound["bound_ms"] / ((k1 + k2) / 2))
 
 
 EVAL_RUNS = (
@@ -2708,12 +2747,285 @@ def phase_probe_xla_modes(P, card):
     return rows
 
 
+
+# ---------------------------------------------------------------------------
+# the rules-parity and quality tools
+# ---------------------------------------------------------------------------
+
+STRESS_BATCHES = 32  # phase 35: 32 x 128 = 4,096 positions of each config
+GUARD_POSITIONS = 1024  # phase 36
+GUARD_CPU_POSITIONS = 32  # and those held to the port's CPU path
+GUARD_RTOL, GUARD_ATOL = 1e-5, 1e-6
+GUARD_AGREE_MIN = 0.99
+# the guard's score calls at Config() widths: the merged legal moves' tail,
+# then the 15 non-double reply rolls
+GUARD_ND_PER_SCORE = 16
+PARITY_EPISODES = 400  # phase 37: two updates of 200 episodes
+PARITY_CKPT_EVERY = 200
+CURVE_GAMES = 256
+H2H_GAMES = 256  # phase 38
+H2H_ARGS = ["--agent-policy", "twoply", "--twoply-tuned", "--opponent", "twoply",
+            "--opponent-scorer", "exact", "--checkpoint", str(CKPT), "--td-mode", "side0"]
+
+
+def tool_nd_vs_plain(P, nd_seen, dev, what, card):
+    """Every captured nd_tail call of a tool's path bit-equal to its plain
+    version; logs the calls' [rows, K, a_max]. Returns calls, shapes, rows
+    and kept slots."""
+    if not nd_seen:
+        raise AssertionError(f"{what}: no nd_tail call captured")
+    worst, _, kept, rows = nd_tail_vs_plain(P, nd_seen, dev)
+    shapes = sorted({(a[0].shape[0], a[7], a[8]) for a in nd_seen})
+    row = dict(calls=len(nd_seen), shapes=shapes, rows=rows, kept=kept, max_abs_err=worst)
+    log(f"{what}: nd_tail vs its plain version on the path's own calls: {json.dumps(row)} {card}")
+    if worst != 0:
+        raise AssertionError(f"{what}: nd_tail differs from its plain version")
+    return row
+
+
+def phase_stress(P, dev, card):
+    """35: the rules stress (``scripts.stress_movegen2``) on the card,
+    4,096 positions of each config: (a) the merged legal moves at
+    ``MoveGenConfig(algo="canonical", dd_subbatch_div=0)``, doubles bias
+    0.35, whose tail is nd_tail at [128, K = 576], one launch a batch; (b)
+    ``legal_moves_split`` at ``MoveGenConfig.fast()`` with iid dice (no
+    kernel). 0 mismatches against the oracle; the overflow rows and
+    positions/s of each; nd_tail on batch 0's inputs bit-equal to its plain
+    version, one launch timed with its bound."""
+    S, nd = P["stress"], P["nd"]
+    cfg, bias, _ = S.configs()["a"]
+    boards, players, dice = P["sampling"].sample_cases(S.SEED0, S.BATCH, doubles_bias=bias)
+    data = torch.tensor([list(b[0]) + list(b[1]) + list(b[2]) + list(b[3]) for b in boards],
+                        dtype=torch.int8, device=dev)
+    seen = []
+    real = nd.nd_tail_fused
+    with _Swap(nd, "nd_tail_fused", lambda *a: seen.append(a) or real(*a)):
+        S.engine_rows(cfg, False, data, torch.tensor(players, dtype=torch.int32, device=dev),
+                      torch.tensor(dice, dtype=torch.int32, device=dev))
+    if [(a[0].shape[0], a[7], a[8]) for a in seen] != [(S.BATCH, 576, 512)]:
+        raise AssertionError(f"[35 stress] unexpected nd_tail calls "
+                             f"{[(a[0].shape, a[7:]) for a in seen]}")
+    out = {"nd_tail_time": nd_one_launch(P, seen[0], dev, "[35 stress] nd_tail at [128, K = 576]")}
+    log(f"[35 stress] nd_tail at [128, K = 576], bit-equal to its plain version: "
+        f"{json.dumps(out['nd_tail_time'])} {card}")
+    for name in ("a", "b"):
+        nd.KERNEL.launches = 0
+        rep = S.run(name, STRESS_BATCHES, dev, log=log)
+        _sync(dev)
+        rep["launches"] = nd.KERNEL.launches
+        log(f"[35 stress] config {name}: {json.dumps(rep)} {card}")
+        if rep["mismatches"] or rep["positions"] != STRESS_BATCHES * S.BATCH:
+            raise AssertionError(f"[35 stress] config {name}: {rep['mismatches']} mismatches")
+        _gate(rep["launches"], STRESS_BATCHES if name == "a" else 0, f"[35 stress] {name} nd_tail")
+        out[name] = rep
+    return out
+
+
+def phase_guard(P, dev, card):
+    """36: the tuned-vs-exact decision guard (``scripts.twoply_decision_guard``)
+    on 1,024 positions of 1-ply greedy self-play (B = 512, 96 steps, the
+    checkpoint's weights): both scorers' top-K slots and scores on the
+    card, 16 nd_tail launches a score call (its legal moves' tail at K = 576
+    and 15 reply rolls) and one a collect step; the first 32 positions
+    scored again on the card in a call of their own, and on the port's CPU
+    path in one of the same size: slots equal, scores within rtol 1e-5,
+    atol 1e-6 (TF32 off), and the 1,024-position call's slots and scores
+    for them the same; agreement >= 0.99; every nd_tail call of the collect
+    ([512, K = 576]) and of the scoring bit-equal to its plain version."""
+    G, nd = P["guard"], P["nd"]
+    tuned, exact = G.configs()
+    params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
+    nd.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    with _capturing(P, P["X"]) as (collect_seen, _):
+        pos, pool = G.collect(params, exact, GUARD_POSITIONS, dev)
+        _sync(dev)
+    collect_s = time.perf_counter() - t0
+    _gate(nd.KERNEL.launches, G.COLLECT_STEPS, "[36 guard] collect nd_tail")
+    launches = nd.KERNEL.launches
+    if len(pos["player"]) != GUARD_POSITIONS:
+        raise AssertionError(f"[36 guard] {len(pos['player'])} positions of {GUARD_POSITIONS}")
+    card_out, seconds = {}, {}
+    with _capturing(P, P["X"]) as (nd_seen, _):
+        for name, cfg in (("tuned", tuned), ("exact", exact)):
+            nd.KERNEL.launches = 0
+            t0 = time.perf_counter()
+            card_out[name] = G.score(params, pos["packed"], pos["player"], pos["dice"], cfg, dev)
+            _sync(dev)
+            seconds[name] = time.perf_counter() - t0
+            _gate(nd.KERNEL.launches, GUARD_ND_PER_SCORE, f"[36 guard] {name} nd_tail")
+            launches += nd.KERNEL.launches
+    nd_collect = tool_nd_vs_plain(P, collect_seen, dev, "[36 guard] collect", card)
+    del collect_seen
+    nd_score = tool_nd_vs_plain(P, nd_seen, dev, "[36 guard] scoring", card)
+    del nd_seen
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    n = GUARD_CPU_POSITIONS
+    few = (pos["packed"][:n], pos["player"][:n], pos["dice"][:n])
+
+    def same(a, b):
+        """(slots equal, the same live slots, scores within tolerance, max |d|)."""
+        live = b[1] > -1e8
+        err = float(abs(a[1][live] - b[1][live]).max())
+        ok = ((a[0] == b[0]).all() and (live == (a[1] > -1e8)).all()
+              and torch.allclose(torch.from_numpy(a[1][live]), torch.from_numpy(b[1][live]),
+                                 rtol=GUARD_RTOL, atol=GUARD_ATOL))
+        return bool(ok), err
+
+    errs = {}
+    for name, cfg in (("tuned", tuned), ("exact", exact)):
+        # one call of n positions on each side: the same program, so any
+        # difference is the device's; then the 1,024-position call's rows
+        on_cpu = G.score(cpu_params, *few, cfg, "cpu")
+        on_card = G.score(params, *few, cfg, dev)
+        ok_dev, errs[name] = same(on_card, on_cpu)
+        ok_call, errs[name + "_in_1024_call"] = same(
+            tuple(x[:n] for x in card_out[name]), on_card)
+        if not (ok_dev and ok_call):
+            raise AssertionError(f"[36 guard] {name}: card {n}-position call vs CPU: {ok_dev}, "
+                                 f"1,024-position call vs card {n}-position call: {ok_call} "
+                                 f"(max |d| {errs})")
+    rep = G.report(*card_out["tuned"], *card_out["exact"])
+    row = dict(report=rep, pool=pool, collect_s=collect_s, score_s=seconds,
+               card_vs_cpu_max_abs=errs, nd_tail_collect=nd_collect, nd_tail_score=nd_score,
+               launches=launches, card=card)
+    log(f"[36 guard] {json.dumps(row)}")
+    if rep["agreement"] < GUARD_AGREE_MIN:
+        raise AssertionError(f"[36 guard] agreement {rep['agreement']} < {GUARD_AGREE_MIN}")
+    return row
+
+
+def phase_parity_and_curve(P, dev, card):
+    """37: two updates of the parity trainer (``scripts.run_parity_trainer``,
+    B = 200 sync games of at most 300 steps, 200 Adam steps an update;
+    nd_tail once a rollout step) with checkpoints at episodes 0, 200 and
+    400, the last equal to the trained params bitwise and ``train.jsonl``
+    with JAX's keys, and the nd_tail calls of one eager rollout step at
+    B = 200 (after three) bit-equal to its plain version; then the curve (``scripts.eval_curve``) over them at
+    256 games: exactly 2 graphs captured, one nd_tail launch a match step,
+    and each checkpoint's winners equal to a separate ``play_match`` call
+    on freshly loaded params with the same seeds."""
+    R, E, A, nd, V = P["parity"], P["curve"], P["arena"], P["nd"], P["value_net"]
+    out = {}
+    with tempfile.TemporaryDirectory() as run:
+        P["graphs"].clear_graphs()
+        nd.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        cfg = R.parity_config(0)
+        state = R.run(cfg, PARITY_EPISODES, run, PARITY_CKPT_EVERY, dev, log=log)
+        _sync(dev)
+        out["train_s"] = time.perf_counter() - t0
+        updates = PARITY_EPISODES // cfg.train.batch_games
+        _gate(nd.KERNEL.launches, updates * cfg.env.max_timesteps, "[37 parity trainer] nd_tail")
+        out["train_launches"] = nd.KERNEL.launches
+        names = sorted(f for f in os.listdir(run) if f.endswith(".pth"))
+        want = [f"ep{e:08d}.pth" for e in range(0, PARITY_EPISODES + 1, PARITY_CKPT_EVERY)]
+        lines = [json.loads(x) for x in open(os.path.join(run, "train.jsonl"))]
+        last = V.load_checkpoint(os.path.join(run, want[-1]), device=dev)
+        if names != want or len(lines) != updates or any(
+                set(x) != {"episodes", "version", "temperature", "loss", "eps_per_sec"}
+                or not math.isfinite(x["loss"]) for x in lines) or not all(
+                torch.equal(last[k], state.params[k]) for k in last):
+            raise AssertionError(f"[37 parity trainer] {names} {lines}")
+        out["train_jsonl"] = lines
+        log(f"[37 parity trainer] {updates} updates in {out['train_s']:.1f}s, checkpoints "
+            f"{names}, {out['train_launches']} nd_tail launches: {json.dumps(lines)} {card}")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        st = P["vec_env"].reset(cfg.train.batch_games, gen, device=dev)
+        temp = P["td"].temperature(state.version, cfg)
+        for i in range(4):
+            with _capturing(P, P["X"]) as (nd_seen, _):
+                st, _ = P["rollout"].rollout_step(state.params, st, temp, cfg, False,
+                                                  gen=gen, device=dev)
+        out["nd_tail_step"] = tool_nd_vs_plain(P, nd_seen, dev, "[37 parity trainer] "
+                                               "rollout step 4", card)
+        del nd_seen
+
+        P["graphs"].clear_graphs()
+        nd.KERNEL.launches = 0
+        curves, info = E.sweep([run], CURVE_GAMES, 0, EVAL_STEPS, dev, log=log)
+        _sync(dev)
+        out["curve_launches"] = nd.KERNEL.launches
+        _gate(out["curve_launches"], len(want) * 2 * EVAL_STEPS, "[37 curve] nd_tail")
+        if info["captures"] != 2:
+            raise AssertionError(f"[37 curve] {info['captures']} graphs captured, want 2")
+        cfg = P["Config"]()
+        greedy, rand = A.greedy_policy(cfg), A.random_policy(cfg)
+        for i, (eps, path, _) in enumerate(E.checkpoints(run)):
+            fresh = V.load_checkpoint(path, device=dev)
+            seed = E.SEED_STRIDE * (i + 1)
+            for side, (pa, pb) in enumerate(((greedy, rand), (rand, greedy))):
+                res = A.play_match(fresh, fresh, pa, pb,
+                                   torch.Generator(device=dev).manual_seed(seed + side), cfg,
+                                   CURVE_GAMES // 2, EVAL_STEPS, device=dev)
+                if not torch.equal(res.winner.cpu(), info["winners"][run][i][side]):
+                    raise AssertionError(f"[37 curve] ep{eps} side {side}: winners differ "
+                                         "from a separate play_match")
+        P["graphs"].clear_graphs()
+        out.update(curve=curves[run], captures=info["captures"], curve_s=info["seconds"])
+        log(f"[37 curve] {len(want)} checkpoints x {CURVE_GAMES} games in "
+            f"{info['seconds']:.1f}s, {info['captures']} graphs captured, winners equal to "
+            f"separate play_match calls: {json.dumps(curves[run])} {card}")
+    return out
+
+
+def phase_head_to_head(P, dev, card):
+    """38: ``apps.evaluate`` tuned 2-ply agent against the exact 2-ply
+    opponent (the checkpoint, td_mode side0) at 256 games, 400 steps:
+    JAX's summary keys, finished > 0, nd_tail once a match step plus 15
+    times a step for each 2-ply side; the win rate and wall seconds. Then
+    the nd_tail calls of one eager match step of the same two policies at
+    256 games (after two) bit-equal to its plain version."""
+    nd, A, C = P["nd"], P["arena"], P["cfg"]
+    P["graphs"].clear_graphs()
+    argv = H2H_ARGS + ["--games", str(H2H_GAMES)]
+    buf = io.StringIO()
+    _sync(dev)
+    nd.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = P["evaluate"].main(argv)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    row = dict(argv=argv, rc=rc, wall_s=wall, launches=nd.KERNEL.launches, summary=summary,
+               card=card)
+    log(f"[38 head-to-head] tuned vs exact: win rate {summary.get('win_rate_a')}: "
+        f"{json.dumps(row)}")
+    _gate(row["launches"], EVAL_STEPS * (1 + 2 * 15), "[38 head-to-head] nd_tail")
+    if rc != 0 or set(summary) != SUMMARY_KEYS or summary["games"] != H2H_GAMES \
+            or summary["finished"] <= 0:
+        raise AssertionError(f"[38 head-to-head] {rc} {summary}")
+    P["graphs"].clear_graphs()
+    # the CLI's two configs and policies (apps.evaluate's make_cfg)
+    cfg_a, cfg_b = (C.Config(twoply=tw, train=C.TrainConfig(td_mode="side0"))
+                    for tw in (C.TwoPlyConfig.tuned(), C.TwoPlyConfig(enabled=True)))
+    params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
+    pa, pb = A.twoply_greedy_policy(cfg_a), A.twoply_greedy_policy(cfg_b)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    m = A._Match(P["vec_env"].reset(H2H_GAMES, gen, device=dev),
+                 torch.full((H2H_GAMES,), -1, dtype=torch.int32, device=dev))
+    with torch.no_grad():
+        for i in range(3):
+            with _capturing(P, P["X"]) as (nd_seen, _):
+                m = A.match_step(params, params, pa, pb, cfg_a, m,
+                                 A.draw_match_noise(H2H_GAMES, cfg_a, gen, dev))
+    row["nd_tail_step"] = tool_nd_vs_plain(P, nd_seen, dev, "[38 head-to-head] match step 3",
+                                           card)
+    return row
+
+
 def main() -> int:
+    # the port's package first: importing it touches no device
+    if not (ROOT / PORT_PACKAGE / "__init__.py").is_file():
+        print(f"chip_smoke: the port's package {PORT_PACKAGE} is not in {ROOT}; run the "
+              "script from the root of a checkout of the repository", file=sys.stderr)
+        return 1
+    P = _port()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
               file=sys.stderr)
         return 2
-    P = _port()
     # the plain version's matmuls must run in full f32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2799,6 +3111,14 @@ def main() -> int:
     gram = phase_gram(P, dev, gen, card)
     scan = phase_scan_and_value_first(P, dev, gen, card)
     phase_probe_xla_modes(P, card)
+    stress = phase_stress(P, dev, card)
+    guard = phase_guard(P, dev, card)
+    parity = phase_parity_and_curve(P, dev, card)
+    h2h = phase_head_to_head(P, dev, card)
+    # the tools' launches (phases 35-38), each run counted from 0
+    tools_nd = {"stress": stress["a"]["launches"], "guard": guard["launches"],
+                "parity_train": parity["train_launches"], "curve": parity["curve_launches"],
+                "head_to_head": h2h["launches"]}
     # the launches of phases 30-33's timed runs, each counted from 0
     a16 = {k: tiered["eager"]["launches"][k] + tiered["graph"]["launches"][k]
            + tiered["train"]["launches"][k]
@@ -2857,7 +3177,7 @@ def main() -> int:
             "source": ND_SOURCE,
             "replaces": ND_REPLACES,
             "launches": stats2["nd_tail_launches"] + train2["launches"]["nd_tail"] + graph_nd
-            + eval_nd + a16["nd_tail"],
+            + eval_nd + a16["nd_tail"] + sum(tools_nd.values()),
             "max_abs_err": max(nd_err, tiered["nd_err"],
                                *(r.get("nd_err", 0.0) for r in scan["kernels"].values())),
             # one 2-ply step's 15 launches at [4096 rows, K = 96], summed
@@ -2892,7 +3212,14 @@ def main() -> int:
                                # one launch at [C x 4096 rows, K = 128]
                                "one_launch": {k: {f: r["nd_tail_time"][f] for f in (
                                    "rows", "ms", "plain_ms", "bound_ms", "bound_by")}
-                                   for k, r in scan["kernels"].items() if "nd_tail_time" in r}}},
+                                   for k, r in scan["kernels"].items() if "nd_tail_time" in r}},
+                      # phases 35-38: the stress (a) at [128, K = 576], one
+                      # launch timed; the guard, the parity trainer, the
+                      # curve and the head-to-head at Config() widths
+                      "tools": {"launches": tools_nd, "stress_one_launch": {
+                          f: stress["nd_tail_time"][f]
+                          for f in ("rows", "K", "ms_per_launch", "plain_ms", "bound_ms",
+                                    "bound_by")}}},
             "ok": True,
         },
         {

@@ -170,7 +170,8 @@ def _record(u, state, gen, metrics, temp, env_steps, cfg, args, writer, tput, la
     return last_saved
 
 
-def _start(cfg, dev):
+def start(cfg, dev):
+    """(generator seeded with the run's seed, a fresh TrainState drawn from it)."""
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
     return gen, td.init_train_state(cfg, gen, dev)
 
@@ -182,9 +183,24 @@ def _resume(cfg, gen, dev):
     return state
 
 
+def sync_update(state, gen: torch.Generator, cfg: Config, dev: torch.device):
+    """One episode-synchronous update: ``batch_games`` fresh games played to
+    their end or the step cap by ``actor.rollout``, then ``td.update`` at
+    the temperature of the state's version. Returns (state, metrics,
+    temperature)."""
+    B, T = cfg.train.batch_games, cfg.env.max_timesteps
+    env_state = vec_env.reset(B, gen, dev)
+    temp = td.temperature(state.version, cfg)
+    _, traj = actor.rollout(
+        state.params, env_state, temp, cfg, T, continuous=False, gen=gen, device=dev
+    )
+    state, metrics = td.update(state, traj, cfg, dev)
+    return state, metrics, temp
+
+
 def train_sync(cfg: Config, args, writer: MetricsWriter, dev: torch.device):
     """Episode-synchronous training (reference semantics)."""
-    gen, state = _start(cfg, dev)
+    gen, state = start(cfg, dev)
     if args.resume:
         state = _resume(cfg, gen, dev)
     tput = Throughput()
@@ -193,13 +209,7 @@ def train_sync(cfg: Config, args, writer: MetricsWriter, dev: torch.device):
     for u in range(args.updates):
         if _STOP:
             break
-        env_state = vec_env.reset(B, gen, dev)
-        temp = td.temperature(state.version, cfg)
-        _, traj = actor.rollout(
-            state.params, env_state, temp, cfg, T, continuous=False, gen=gen, device=dev
-        )
-        state, metrics = td.update(state, traj, cfg, dev)
-        del traj
+        state, metrics, temp = sync_update(state, gen, cfg, dev)
         last_saved = _record(u, state, gen, metrics, temp, B * T, cfg, args, writer, tput,
                              last_saved, dev, memory=False)
     return state, gen
@@ -212,7 +222,7 @@ def train_continuous_single(cfg: Config, args, writer: MetricsWriter, dev: torch
     learner and the generator and re-creates the games, as the JAX package
     does, so only a sync-mode resume repeats an uninterrupted run."""
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, per_episode_updates=False))
-    gen, state = _start(cfg, dev)
+    gen, state = start(cfg, dev)
     env_state = vec_env.reset(cfg.train.batch_games, gen, dev)
     if args.resume:
         state = _resume(cfg, gen, dev)
@@ -249,7 +259,7 @@ def train_continuous(cfg: Config, args, writer: MetricsWriter, dev: torch.device
         return train_continuous_single(cfg, args, writer, dev)
     tp = args.model > 1
     mesh = distributed.global_mesh(args.model)
-    gen0, state = _start(cfg, dev)
+    gen0, state = start(cfg, dev)
     env_state = vec_env.reset(cfg.train.batch_games, gen0, dev)
     if args.resume:
         state = _resume(cfg, gen0, dev)

@@ -86,17 +86,21 @@ def params_signature(params) -> tuple:
 
 GRAPH_SETS = 4  # captured graphs kept, rollout's and arena's together
 GRAPHS: "OrderedDict[tuple, object]" = OrderedDict()  # key -> graph, least recent first
+captures = 0  # graphs that cached_graph has captured in this process
 
 
 def cached_graph(key: tuple, make: Callable[[], object]) -> Tuple[object, bool]:
     """The graph kept under ``key``, or ``make()``'s, kept from now on; it
     becomes the most recently used, and the least recently used beyond
     ``GRAPH_SETS`` are dropped with their memory pools. Returns (graph,
-    whether ``make`` captured it in this call)."""
+    whether ``make`` captured it in this call); each capture adds one to
+    ``captures``."""
+    global captures
     g = GRAPHS.get(key)
     made = g is None
     if made:
         g = GRAPHS[key] = make()
+        captures += 1
         while len(GRAPHS) > GRAPH_SETS:
             GRAPHS.popitem(last=False)
     GRAPHS.move_to_end(key)

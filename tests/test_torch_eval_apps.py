@@ -2,8 +2,9 @@
 JAX package's, on the CPU.
 
 * The oracle copies (``oracle/rules.py``, ``oracle/env.py``) give the JAX
-  package's full moves and transitions on positions sampled with JAX
-  ``oracle/sampling.py``.
+  package's full moves and transitions on positions sampled with the
+  port's ``oracle/sampling.py`` (which ``tests/test_torch_sampling.py``
+  holds equal to JAX's).
 * ``render`` and ``describe_move`` give the same strings.
 * ``forward_np`` and the play CLI's agent give JAX's values and actions; the
   port's batch-1 engine (``--engine torch``) presents the oracle's move set
@@ -24,7 +25,6 @@ from mlp_ppo_2ply_multi_tpu.apps import render as jrender
 from mlp_ppo_2ply_multi_tpu.model import value_net as jV
 from mlp_ppo_2ply_multi_tpu.oracle import env as jenv
 from mlp_ppo_2ply_multi_tpu.oracle import rules as jrules
-from mlp_ppo_2ply_multi_tpu.oracle import sampling
 from mlp_ppo_2ply_multi_tpu_torch.apps import evaluate, play, render
 from mlp_ppo_2ply_multi_tpu_torch.core.config import Config
 from mlp_ppo_2ply_multi_tpu_torch.io import checkpoint
@@ -32,6 +32,7 @@ from mlp_ppo_2ply_multi_tpu_torch.learner import td
 from mlp_ppo_2ply_multi_tpu_torch.model import value_net
 from mlp_ppo_2ply_multi_tpu_torch.oracle import env as tenv
 from mlp_ppo_2ply_multi_tpu_torch.oracle import rules as trules
+from mlp_ppo_2ply_multi_tpu_torch.oracle import sampling
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CKPT = str(ROOT / "checkpoints" / "side0_20480000.pth")

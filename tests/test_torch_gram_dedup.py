@@ -21,10 +21,10 @@ import torch
 from mlp_ppo_2ply_multi_tpu.core import config as jcfg
 from mlp_ppo_2ply_multi_tpu.engine import board as jB
 from mlp_ppo_2ply_multi_tpu.engine import movegen2 as jMG2
-from mlp_ppo_2ply_multi_tpu.oracle import sampling
 from mlp_ppo_2ply_multi_tpu_torch.core import config as tcfg
 from mlp_ppo_2ply_multi_tpu_torch.engine import board as tB
 from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2 as tMG2
+from mlp_ppo_2ply_multi_tpu_torch.oracle import sampling
 from tests.helpers import bearoff_doubles_case
 from tests.test_torch_twoply import one_torch_thread  # noqa: F401 (autouse)
 

@@ -45,8 +45,11 @@ def test_isolation_covers_every_port_module():
     the training CLI, the row-take kernel and its probe, the oracle copies,
     the arena and the evaluate and play CLIs, the graph cache they share,
     the sorted engine (its hashes, dedup and takes) with its trajectory
-    script, the ring buffer, profiling, the fsspec mirror and the mesh
-    (distributed, sharding and their multi-process script) are among them."""
+    script, the ring buffer, profiling, the fsspec mirror, the mesh
+    (distributed, sharding and their multi-process script), the position
+    sampler and the rules-parity and quality tools (the rules stress, the
+    2-ply decision guard, the learning-curve sweep and the parity trainer)
+    are among them."""
     for m in (
         "mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax",
         "mlp_ppo_2ply_multi_tpu_torch.experimental.nd_tail",
@@ -77,6 +80,11 @@ def test_isolation_covers_every_port_module():
         "mlp_ppo_2ply_multi_tpu_torch.parallel.distributed",
         "mlp_ppo_2ply_multi_tpu_torch.parallel.sharding",
         "mlp_ppo_2ply_multi_tpu_torch.scripts.multiprocess_distributed",
+        "mlp_ppo_2ply_multi_tpu_torch.oracle.sampling",
+        "mlp_ppo_2ply_multi_tpu_torch.scripts.stress_movegen2",
+        "mlp_ppo_2ply_multi_tpu_torch.scripts.twoply_decision_guard",
+        "mlp_ppo_2ply_multi_tpu_torch.scripts.eval_curve",
+        "mlp_ppo_2ply_multi_tpu_torch.scripts.run_parity_trainer",
     ):
         assert m in MODULES, m
     assert (ROOT / "chip_smoke.py").exists()
@@ -100,10 +108,26 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from mlp_ppo_2ply_multi_tpu_torch.io import checkpoint
     from mlp_ppo_2ply_multi_tpu_torch.learner import td
     from mlp_ppo_2ply_multi_tpu_torch.model import value_net
+    from mlp_ppo_2ply_multi_tpu_torch.scripts import (
+        eval_curve,
+        run_parity_trainer,
+        stress_movegen2,
+        twoply_decision_guard,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         resolve_device(None)
+    for make in (
+        lambda: stress_movegen2.main(["1"]),
+        lambda: stress_movegen2.run("a", 1),
+        lambda: twoply_decision_guard.main(["8"]),
+        lambda: eval_curve.main([str(tmp_path)]),
+        lambda: run_parity_trainer.main(["--episodes", "8", "--out", str(tmp_path / "p")]),
+    ):
+        with pytest.raises(RuntimeError):
+            make()
+    assert not (tmp_path / "p").exists()
     with pytest.raises(RuntimeError):
         vec_env.reset(8)
     cfg = Config.production()
@@ -176,3 +200,16 @@ def test_rollout_step_refuses_state_on_another_device():
     with pytest.raises(ValueError):
         check_on(torch.zeros(2), torch.device("meta"), "state")
     check_on(torch.zeros(2), torch.device("cpu"), "state")
+
+
+def test_chip_smoke_alone_exits_1_naming_the_package(tmp_path):
+    """Copied alone into an empty directory, chip_smoke.py finds no port
+    beside it: one line names the package and the directory, exit 1, and
+    no result line, with or without a card."""
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 1, out.stderr
+    said = (out.stdout + out.stderr).strip().splitlines()
+    assert len(said) == 1 and "mlp_ppo_2ply_multi_tpu_torch" in said[0]
+    assert str(tmp_path) in said[0] and '"ok"' not in out.stdout

@@ -295,7 +295,7 @@ def test_sorted_engine_runs_except_in_legal_moves_split():
     ``legal_moves_split``, canonical-only in JAX too, raises, and with it
     the split-planes step."""
     base = split_cfg()
-    params = tV.init_params(base.model, device="cpu")
+    params = tV.init_params(base.model, torch.Generator().manual_seed(0), device="cpu")
     st = tE.reset(B, torch.Generator().manual_seed(0), device="cpu")
     sorted_mg = dataclasses.replace(base.movegen, algo="sorted")
     ms = tMG.legal_moves(st.board, st.player, st.dice, sorted_mg)
@@ -316,7 +316,10 @@ def test_sorted_engine_runs_except_in_legal_moves_split():
         new, t = tR.rollout_step(params, st, 1.0, cfg, True, gen=gen, device="cpu")
         assert bool(t.recorded.any()) and not bool(t.overflow.any())
         assert bool(tB.checker_conservation_ok(new.board).all())
-        _, traj = tR.rollout_chunked(params, st, 1.0, cfg, 2, chunk=2, device="cpu")
+        # seeded: a step where more than B / actor_tier_wide_div games have
+        # over actor_tier_width moves flags the tier overflow, as it should
+        _, traj = tR.rollout_chunked(params, st, 1.0, cfg, 2, chunk=2,
+                                     gen=torch.Generator().manual_seed(1), device="cpu")
         assert tuple(traj.num_moves.shape) == (2, B) and not bool(traj.overflow.any())
 
 

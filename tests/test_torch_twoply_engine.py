@@ -266,12 +266,15 @@ def _mixed_batch(seed, n):
 
 
 @pytest.mark.parametrize(
-    "widths,n", [("small", 48), ("small", 256), ("fast", 256)],
+    "widths,n", [("small", 48), ("small", 256), ("fast", 256), ("default", 256)],
 )
 def test_legal_moves_merged_bit_exact(widths, n):
     """n <= 64 runs the doubles on the whole batch, n > 64 on the compacted
-    sub-batch; the fast widths run the two-tier non-doubles tail."""
-    kw = SMALL if widths == "small" else dataclasses.asdict(jcfg.MoveGenConfig.fast())
+    sub-batch; the fast widths run the two-tier non-doubles tail, the
+    default ``MoveGenConfig()`` widths (the evaluate CLI's) the single-pass
+    tail at K = 576."""
+    kw = {"small": SMALL, "fast": dataclasses.asdict(jcfg.MoveGenConfig.fast()),
+          "default": {}}[widths]
     boards, players, dice = _mixed_batch(70 + n, n)
     jc, tc = jcfg.MoveGenConfig(**kw), tcfg.MoveGenConfig(**kw)
     fn = jax.jit(lambda b, p, d: jMG2.legal_moves(jB.Board(b), p, d, jc))
