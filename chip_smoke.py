@@ -39,7 +39,11 @@ product modes. Paths 16-19 are the repo's rules-parity and quality tools
 (``scripts.stress_movegen2``, ``scripts.twoply_decision_guard``,
 ``scripts.run_parity_trainer`` with ``scripts.eval_curve``, and the
 evaluate CLI's tuned-vs-exact 2-ply head-to-head), whose merged legal
-moves and reply enumerations run nd_tail at ``Config()``'s widths.
+moves and reply enumerations run nd_tail at ``Config()``'s widths. Paths
+20-23 are the repo's measurement tools (``scripts.bench``,
+``scripts.bench_twoply``, ``scripts.roofline``, ``scripts.trace_attr``,
+``scripts.bench_r2_sweep`` and ``scripts.bench_spmd``), which drive paths 1
+and 2 and their variants.
 Phases, in order; any failure exits non-zero:
 
 1. device: torch's view of the card and nvidia-smi's name and power limit;
@@ -206,6 +210,21 @@ Phases, in order; any failure exits non-zero:
     ``play_match`` call;
 38. ``apps.evaluate`` tuned 2-ply against exact 2-ply at 256 games: 31
     nd_tail launches a match step, the win rate and wall seconds;
+39. the benches: the 1-ply headline (``scripts.bench --eager``: graphed at
+    chunk 4 and eager, B = 4096) and the 2-ply bench (tuned and plain,
+    B = 1024, a graph of one step): one JSON line each, its keys finite and
+    positive, fused_value launched 2 a 1-ply step and 22 a tuned 2-ply step
+    (nd_tail 15); the graphed ms/step beside phase 22's;
+40. the roofline (``scripts.roofline all``): the launch floor and the
+    measured bf16 and HBM peaks, each at most 1.05 of the published peak;
+    both steps' achieved fractions at most 1.05; one 1-ply step's count
+    (``utils.cost``) on the card equal to the CPU's;
+41. ``scripts.trace_attr`` of the 1-ply step at B = 4096 and the tuned 2-ply
+    step at B = 1024: every JAX stage the step passes through owns device
+    time; the top stages, the unscoped share and the coverage;
+42. ``scripts.bench_r2_sweep`` over prod, prod_gram, tiered and
+    twoply_tuned (exit 0, a line each), tier0 refused (exit 1, named), and
+    ``scripts.bench_spmd`` at n = 1 on a one-rank NCCL group;
 
 then the kernels line (launches summed over every path's timed run) and the
 result line. Phases 4, 7, 10 and 13 time the eager step; the training runs
@@ -246,14 +265,6 @@ CKPT = ROOT / "checkpoints" / "side0_20480000.pth"
 # can move one hidden unit by one bf16 ulp, <= 2^-9, times |w2|)
 KERNEL_TOL = 5e-3
 AGREE_MIN = 0.999
-# NVIDIA H100 SXM data sheet (dense, no sparsity), at its 700 W limit
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-# CUDA-core operations (integer and f32, outside the tensor cores): the data
-# sheet's 67 TFLOP/s f32 rate, which bounds the nd_tail kernel's int work
-CORE_OPS_PER_S = 67e12
-# MUFU (ex2, rcp): 16 a clock per SM, 132 SMs at the 1,980 MHz boost clock
-MUFU_OPS_PER_S = 16 * 132 * 1.98e9
 KERNEL_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/ops/csrc/fused_value.cu"
 KERNEL_REPLACES = "mlp_ppo_2ply_multi_tpu/ops/fused_value.py:93"
 ND_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/experimental/csrc/nd_tail.cu"
@@ -346,8 +357,13 @@ def _port():
     from mlp_ppo_2ply_multi_tpu_torch.oracle import sampling
     from mlp_ppo_2ply_multi_tpu_torch.scripts import eval_curve, run_parity_trainer
     from mlp_ppo_2ply_multi_tpu_torch.scripts import stress_movegen2, twoply_decision_guard
+    from mlp_ppo_2ply_multi_tpu_torch.scripts import bench, bench_r2_sweep, bench_spmd
+    from mlp_ppo_2ply_multi_tpu_torch.scripts import bench_twoply, roofline, trace_attr
+    from mlp_ppo_2ply_multi_tpu_torch.utils import cost
 
     return dict(
+        bench=bench, bench_twoply=bench_twoply, sweep=bench_r2_sweep, spmd=bench_spmd,
+        roofline=roofline, trace_attr=trace_attr, cost=cost,
         sampling=sampling, stress=stress_movegen2, guard=twoply_decision_guard,
         curve=eval_curve, parity=run_parity_trainer,
         tiered=tiered,
@@ -721,11 +737,12 @@ def _dev_t(e) -> float:
 def _device_events(prof):
     """The trace's device events (kernels, copies, sets), averaged by name.
     torch.profiler also gives each CPU op the device time of the kernels it
-    launched, so a sum over every event counts an eager kernel twice."""
-    from torch.autograd import DeviceType
+    launched, and each stage scope a device span over its kernels, so a sum
+    over every event counts an eager kernel twice
+    (``utils.profiling.device_events``)."""
+    from mlp_ppo_2ply_multi_tpu_torch.utils.profiling import device_events
 
-    return [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    return device_events(prof.key_averages())
 
 
 def profile_steps(P, params, state, cfg, dev, gen, steps, step_ms, card, tag):
@@ -776,57 +793,12 @@ def _time_ms(fn, dev, iters=30):
     return e0.elapsed_time(e1) / iters
 
 
-def kernel_bound(boards, hidden=128):
-    """Least time for fused_value on these rows: the bytes it must move
-    (boards + per-row flag in, f32 out, params) over HBM bandwidth, and the
-    bf16 products this data needs (the nonzero lanes of r times G, plus the
-    head) over the bf16 peak. Also the floors of the kernel's design: the
-    dense 208 x h layer-1 product over the bf16 peak, and the sigmoid's two
-    MUFU operations (ex2, rcp) per hidden unit over the MUFU rate."""
-    c = boards.reshape(-1, 52).to(torch.int32)
-    rows = c.shape[0]
-    nnz = int(c[:, :48].clamp(0, 4).sum()) + int((c[:, 48:] > 0).sum())
-    ops = 2 * nnz * hidden + rows * 2 * hidden
-    dense_ops = rows * (2 * 208 * hidden + 2 * hidden)
-    nbytes = rows * (52 + 1 + 4) + 208 * hidden * 2 + hidden * (4 + 4 + 2) + 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_FLOP_PER_S * 1e3
-    return dict(
-        rows=rows, nnz_lanes_per_row=nnz / rows, bytes=nbytes, ops=ops,
-        dense_ops=dense_ops, bytes_ms=t_bytes, ops_ms=t_ops,
-        dense_ops_ms=dense_ops / BF16_FLOP_PER_S * 1e3,
-        sigmoid_ms=rows * hidden * 2 / MUFU_OPS_PER_S * 1e3,
-        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-    )
-
-
 def _queued_ms_per_round(fns, dev, rounds=10):
-    """Device time per round of calling every fn once: CUDA events around
-    ``rounds`` rounds that the host queued while a spin kernel held the
-    card, so the events time the kernels back to back, whatever the host's
-    launch rate (a loop timed with events alone measures the host where
-    each launch is shorter than its Python wrapper). The spin grows until
-    the card is still spinning when the host has queued the last launch;
-    the run fails if it never is."""
-    for f in fns:
-        f()
-    _sync(dev)
-    cycles = 10**8  # ~50 ms at the H100's 1.98 GHz boost clock
-    for _ in range(4):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        e0.record()
-        for _ in range(rounds):
-            for f in fns:
-                f()
-        e1.record()
-        queued_ahead = not e0.query()
-        _sync(dev)
-        if queued_ahead:
-            return e0.elapsed_time(e1) / rounds
-        cycles *= 8
-    raise AssertionError("the host could not queue the timed launches ahead of the card")
+    """Device time per round of calling every fn once, the launches queued
+    behind a spin kernel (``utils.profiling.queued_ms_per_round``)."""
+    from mlp_ppo_2ply_multi_tpu_torch.utils.profiling import queued_ms_per_round
+
+    return queued_ms_per_round(fns, dev, rounds)
 
 
 def phase_kernel_timing(P, params, real_inputs, dev, card, tag="[8 kernel time]", iters=30):
@@ -849,7 +821,7 @@ def phase_kernel_timing(P, params, real_inputs, dev, card, tag="[8 kernel time]"
         p1, k1, w1, w2, k2, p2 = (
             _time_ms(f, dev, iters) for f in (plain, kern, wrap, wrap, kern, plain)
         )
-        bd = kernel_bound(boards)
+        bd = P["fv"].bound(boards)
         row = dict(shape=list(boards.shape[:-1]), events_ms=(k1 + k2) / 2,
                    wrapper_ms=(w1 + w2) / 2, plain_ms=(p1 + p2) / 2,
                    runs_ms=[p1, k1, w1, w2, k2, p2], **bd)
@@ -1102,49 +1074,6 @@ def phase_twoply_card_vs_cpu(P, params, cfg, dev, gen, card):
         raise AssertionError(f"2-ply card and CPU decisions disagree beyond a near-tie: {gaps}")
 
 
-def nd_tail_child_rows(valid, K):
-    """Per row, the distinct 52-byte child rows of the pass-A and pass-B
-    tables (27 each) that nd_tail must read: those of the first min(count,
-    K) set cells, and pass B's child 26 where the count is under K (the
-    clip slot). Cell c lies in block c // 27 (pass-A pairs 0..26, singles
-    27, pass-B pairs 28..54, singles 55); a pair takes the child of its
-    block, a single the child of its place in the block."""
-    c = torch.arange(1512, device=valid.device)
-    blk, loc = c // 27, c % 27
-    cpass = (blk >= 28).long()
-    bb = blk - 28 * cpass
-    child = 27 * cpass + torch.where(bb < 27, bb, loc)  # 0..53
-    onehot = torch.nn.functional.one_hot(child, 54).float()
-    sel = valid & (torch.cumsum(valid.int(), -1) <= K)
-    used = (sel.float() @ onehot) > 0
-    used[:, 53] |= valid.sum(-1) < K
-    return used.sum(-1)
-
-
-def nd_tail_bound(valid, K):
-    """Least time for nd_tail on these rows: the bytes it must move (1512
-    candidate bytes, the child rows its selected candidates use,
-    ``nd_tail_child_rows``, the 52-byte root and three int32 in; K x 52
-    afterstates, keep and kpair bytes and two int32 out) over HBM
-    bandwidth, and the operations this data needs over the CUDA-core rate:
-    every candidate bit is read by the select, and each present candidate
-    (at most K) is decoded, applied and signed (counted as 64 operations)
-    and compared with the earlier ones."""
-    n = valid.shape[0]
-    m = valid.sum(-1).clamp_max(K).to(torch.int64)
-    children = int(nd_tail_child_rows(valid, K).sum())
-    nbytes = n * (1512 + 52 + 3 * 4) + 52 * children + n * (K * 52 + 2 * K + 2 * 4)
-    ops = n * 1512 + int((64 * m + m * (m - 1) // 2).sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CORE_OPS_PER_S * 1e3
-    return dict(
-        rows=n, K=K, present_per_row=float(m.float().mean()),
-        child_rows_per_row=children / n, bytes=nbytes, ops=ops,
-        bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-    )
-
-
 def phase_twoply_kernel_timing(P, params, nd_seen, fv_seen, dev, card):
     """nd_tail per captured call: the kernel alone, the wrapper (operand
     layout + launch) and the plain version; fused_value at the 2-ply
@@ -1162,7 +1091,7 @@ def phase_twoply_kernel_timing(P, params, nd_seen, fv_seen, dev, card):
 def nd_tail_timing(P, nd_seen, dev):
     """Per captured nd_tail call, CUDA events around loops of the kernel
     alone, the wrapper (operand layout + launch) and the plain version,
-    with the bound (``nd_tail_bound``); and their sums over the calls, the
+    with the bound (``nd_tail.bound``); and their sums over the calls, the
     kernel's device time from its launches queued ahead of the card."""
     nd = P["nd"]
     per = []
@@ -1179,7 +1108,7 @@ def nd_tail_timing(P, nd_seen, dev):
         )
         per.append(dict(events_ms=(k1 + k2) / 2, wrapper_ms=(w1 + w2) / 2,
                         plain_ms=(p1 + p2) / 2, runs_ms=[p1, k1, w1, w2, k2, p2],
-                        **nd_tail_bound(args[0], K)))
+                        **nd.bound(args[0], K)))
     return per, _step_sums(per, _queued_ms_per_round(kernel_calls, dev))
 
 
@@ -1668,22 +1597,6 @@ def phase_graph_times(P, dev, card):
 # ---------------------------------------------------------------------------
 
 
-def take_bound(boards, idx):
-    """Least time for take_rows on these inputs, bound by bytes (it does no
-    arithmetic beyond addresses): the distinct in-range source rows each
-    game's indices use, read once, the indices, and N x K x C bytes
-    written, over HBM bandwidth."""
-    n, w, c = boards.shape
-    k = idx.shape[1]
-    ok = (idx >= 0) & (idx < w)
-    used = torch.zeros((n, w), dtype=torch.int32, device=boards.device)
-    used.scatter_reduce_(1, idx.long().clamp(0, w - 1), ok.int(), reduce="amax")
-    rows = int(used.sum())
-    nbytes = rows * c + idx.numel() * idx.element_size() + n * k * c
-    return dict(rows_used_per_game=rows / n, bytes=nbytes,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
-
-
 def take_cases(P, dev):
     """Phase 23's inputs: the probe's own (N = 4096, K = W = 128), an N that
     is a multiple of no block, the actor's tier-1 take shape (K = 96 from
@@ -1744,7 +1657,7 @@ def phase_take(P, dev, card):
         row = dict(case=name, n=n, w=w, k=k, idx_dtype=str(idx.dtype).split(".")[-1],
                    outside=int((~ok).sum()), max_abs_err=err, ms=(k1 + k2) / 2,
                    library_ms=(l1 + l2) / 2, plain_ms=plain_ms, runs_ms=[k1, l1, l2, k2],
-                   plan=T.plan(n, w, k, c), **take_bound(boards, idx))
+                   plan=T.plan(n, w, k, c), **P["take"].bound(boards, idx))
         row["bound_share"] = row["bound_ms"] / row["ms"]
         log(f"[23 take] {json.dumps(row)} {card}")
         rows[name] = row
@@ -1958,7 +1871,7 @@ def nd_one_launch(P, args, dev, what):
     k1 = _queued_ms_per_round([kern], dev)
     plain_ms = _time_ms(lambda: nd.nd_tail_plain(*args), dev, 5)
     k2 = _queued_ms_per_round([kern], dev)
-    bound = nd_tail_bound(args[0], K)
+    bound = nd.bound(args[0], K)
     return dict(ms_per_launch=(k1 + k2) / 2, runs_ms=[k1, k2], plain_ms=plain_ms,
                 **bound, bound_share=bound["bound_ms"] / ((k1 + k2) / 2))
 
@@ -3015,6 +2928,204 @@ def phase_head_to_head(P, dev, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the measurement tools (phases 39-42)
+# ---------------------------------------------------------------------------
+
+# phase 39: the headline bench's steps (scripts.bench.run at its defaults:
+# max(8 // 4, 2) chunks of warm-up and 50 // 4 timed, 4 steps a chunk), the
+# 1 + 4 eager steps of its chunk count, and --eager's run of the same steps
+BENCH_STEPS = (max(8 // 4, 2) + 50 // 4) * 4
+BENCH_LAUNCHES = 2 * (BENCH_STEPS + 1 + 4 + BENCH_STEPS)
+BENCH_TWOPLY_STEPS = 2 + 12  # bench_twoply's 2 warm-up and 12 timed steps
+BENCH_KEYS = ("value", "ms_per_step", "mfu", "achieved_bw_frac")
+CEILING = 1.05  # a fraction of a published peak above this means a wrong count
+B_COUNT = 256  # phase 40: the 1-ply step's count, card against CPU
+# phase 41: the JAX scope names each step passes through that a stage tag
+# keeps (tests/test_torch_bench_tools.py holds the full sets to JAX's)
+STAGES_1PLY = {"nd_front", "nd_tail_t1", "nd_tail_t2", "dd_L2", "dd_L3", "dd_L4", "slotv",
+               "sel", "take", "act_t1", "act_t2", "env_step"}
+STAGES_2PLY = ({"nd_front", "nd_tail", "nd_tail_t1", "nd_tail_t2", "dd_L2", "dd_L3", "dd_L4",
+                "slotv", "sel", "take", "mg_merge", "env_step"}
+               | {f"dd{d}" for d in range(1, 7)}
+               | {f"nd{h}{lo}" for h in range(2, 7) for lo in range(1, h)})
+ATTR_TOP = 15
+# phase 42: the sweep at a reduced step count (tier0 alone: JAX's split-plane
+# step refuses it too), then bench_spmd at n = 1
+SWEEP_VARIANTS = ("prod", "prod_gram", "tiered", "twoply_tuned")
+SWEEP_ARGS = ["--steps", "8", "--twoply-steps", "4"]
+SPMD_ARGS = ["--steps", "4"]
+
+
+def _tool_lines(main, argv):
+    """A tool's ``main(argv)`` in this process: (exit code, its JSON lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+
+
+def _positive(row, keys, what):
+    for k in keys:
+        v = row.get(k)
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            raise AssertionError(f"{what}: {k} is {v!r}")
+
+
+def phase_bench(P, dev, card, graph_ms):
+    """39: the headline bench (``scripts.bench.main --eager``: the 1-ply
+    step graphed at chunk 4 and eager, B = 4096) and the 2-ply bench
+    (``scripts.bench_twoply.main``, tuned and plain, B = 1024, graphed at
+    chunk 1): one JSON line each with its keys finite and positive, and
+    fused_value launched 2 a step of the 1-ply run (graphed, counted and
+    eager) and 22 a step of the tuned 2-ply run (nd_tail 15). The graphed
+    1-ply ms/step beside phase 22's, no gate on time."""
+    fv, nd = P["fv"].KERNEL, P["nd"].KERNEL
+    out = {}
+    for name, main, argv, want in (
+        ("1ply", P["bench"].main, ["--eager"], {"fused_value": BENCH_LAUNCHES, "nd_tail": 0}),
+        ("2ply_tuned", P["bench_twoply"].main, [],
+         {"fused_value": FV_LAUNCHES_PER_STEP_2PLY * BENCH_TWOPLY_STEPS,
+          "nd_tail": ND_LAUNCHES_PER_STEP * BENCH_TWOPLY_STEPS}),
+        ("2ply_plain", P["bench_twoply"].main, ["1024", "12", "plain"], None),
+    ):
+        P["graphs"].clear_graphs()
+        _sync(dev)
+        fv.launches = nd.launches = 0
+        rc, lines = _tool_lines(main, argv)
+        _sync(dev)
+        launches = {"fused_value": fv.launches, "nd_tail": nd.launches}
+        if rc != 0 or len(lines) != 1:
+            raise AssertionError(f"[39 bench] {name}: exit {rc}, {len(lines)} JSON lines")
+        row = lines[0]
+        _positive(row, BENCH_KEYS if name == "1ply" else ("value", "ms_per_step"),
+                  f"[39 bench] {name}")
+        if want is not None and launches != want:
+            raise AssertionError(f"[39 bench] {name}: launches {launches}, want {want}")
+        out[name] = dict(row, launches=launches)
+        log(f"[39 bench] {name}: {json.dumps(out[name])}")
+    log(f"[39 bench] 1-ply graphed {out['1ply']['ms_per_step']:.3f} ms/step "
+        f"(phase 22 at chunk 4: {graph_ms:.3f}), eager {out['1ply']['eager_ms_per_step']:.3f}; "
+        f"2-ply tuned {out['2ply_tuned']['ms_per_step']:.3f}, plain "
+        f"{out['2ply_plain']['ms_per_step']:.3f} ms/step {card}")
+    P["graphs"].clear_graphs()
+    return out
+
+
+def phase_roofline(P, dev, card):
+    """40: ``scripts.roofline.main all``: the launch floor, the measured
+    bf16 and HBM peaks, each at most 1.05 of the published one, and each
+    step's achieved fractions at most 1.05 of the published peaks; then one
+    1-ply production step's count (``utils.cost``) on the card equal, op by
+    op and tag by tag, to the CPU's from the same state and params."""
+    B, C = P["bench"], P["cost"]
+    fv, nd = P["fv"].KERNEL, P["nd"].KERNEL
+    P["graphs"].clear_graphs()
+    path = Path(tempfile.mkdtemp(prefix="roofline_")) / "roofline.json"
+    fv.launches = nd.launches = 0
+    rc, _ = _tool_lines(P["roofline"].main, ["all", "--out", str(path)])
+    launches = {"fused_value": fv.launches, "nd_tail": nd.launches}
+    res = json.loads(path.read_text())
+    if rc != 0:
+        raise AssertionError(f"[40 roofline] exit {rc}")
+    log(f"[40 roofline] peaks: {json.dumps({k: v for k, v in res.items() if k not in ('oneply', 'twoply')})}")
+    peaks = {"measured_peak_tflops_bf16": C.BF16_FLOP_PER_S / 1e12,
+             "measured_peak_hbm_gbs": C.HBM_BYTES_PER_S / 1e9}
+    for k, published in peaks.items():
+        if not 0 < res[k] <= CEILING * published:
+            raise AssertionError(f"[40 roofline] {k} {res[k]} against published {published}")
+    for w in ("oneply", "twoply"):
+        r = res[w]
+        log(f"[40 roofline] {w}: {json.dumps(r)}")
+        for k in ("mfu_vs_datasheet", "bw_frac_vs_datasheet"):
+            if not 0 < r[k] <= CEILING:
+                raise AssertionError(f"[40 roofline] {w} {k} = {r[k]}: the count is wrong")
+        log(f"[40 roofline] {w}: {r['ms_per_step']:.3f} ms/step, "
+            f"{r['hbm_bytes_per_disp'] / 1e9:.3f} GB and {r['flops_per_disp'] / 1e9:.3f} GFLOP "
+            f"a dispatch of {r['steps_per_disp']}, bf16 {r['mfu_vs_datasheet']:.5f} "
+            f"({r['mfu_vs_measured']:.5f} of measured), HBM {r['bw_frac_vs_datasheet']:.4f} "
+            f"({r['bw_frac_vs_measured']:.4f} of measured) {card}")
+    cfg = B.production_config()
+    params, state, temp, _ = B.setup(cfg, B_COUNT, dev)
+    on_card = B.chunk_cost(params, state, temp, cfg, 1, dev)
+    cpu = torch.device("cpu")
+    on_cpu = B.chunk_cost({k: v.cpu() for k, v in params.items()}, _to_cpu(state), temp.cpu(),
+                          cfg, 1, cpu)
+    if on_card.by_tag != on_cpu.by_tag:
+        diff = {t for t in set(on_card.by_tag) | set(on_cpu.by_tag)
+                if on_card.by_tag.get(t) != on_cpu.by_tag.get(t)}
+        raise AssertionError(f"[40 roofline] the card's count differs from the CPU's at {diff}")
+    log(f"[40 roofline] one 1-ply step at B={B_COUNT}: the card's count equals the CPU's "
+        f"({on_card.flops:.6g} flops, {on_card.elementwise_ops:.6g} elementwise ops, "
+        f"{on_card.bytes:.6g} bytes, {len(on_card.by_tag)} tags)")
+    P["graphs"].clear_graphs()
+    return dict(res, launches=launches)
+
+
+def phase_trace_attr(P, dev, card):
+    """41: ``scripts.trace_attr.attribute`` of one eager step of ``prod`` at
+    B = 4096 and of ``twoply_tuned`` at B = 1024: every JAX stage the step
+    passes through owns device time in a tag; the top rows, the unscoped
+    share and the coverage against the step's device time queued behind a
+    spin kernel. The graphed step replays the same kernels."""
+    TA, prof = P["trace_attr"], P["profiling"]
+    fv, nd = P["fv"].KERNEL, P["nd"].KERNEL
+    out = {}
+    for name, batch, want in (("prod", B_PROD, STAGES_1PLY),
+                              ("twoply_tuned", B_TWOPLY, STAGES_2PLY)):
+        fv.launches = nd.launches = 0
+        a = TA.attribute(name, batch, dev)
+        launches = {"fused_value": fv.launches, "nd_tail": nd.launches}
+        for line in TA.report(name, batch, ATTR_TOP, a):
+            log(f"[41 trace_attr] {line}")
+        got = {p for t in a["stages"] for p in t.split("/") if prof.STAGE_RE.fullmatch(p)}
+        if want - got:
+            raise AssertionError(f"[41 trace_attr] {name}: no device time under {want - got}")
+        unscoped = TA.unscoped_ms(a["stages"])
+        row = dict(batch=batch, attributed_ms=a["attributed_ms"], traced_ms=a["traced_ms"],
+                   device_ms=a["device_ms"], unscoped_ms=unscoped,
+                   unscoped_share=unscoped / a["attributed_ms"],
+                   coverage=a["attributed_ms"] / a["device_ms"], total_gb=a["total_bytes"] / 1e9,
+                   outer=TA.outer_stages(a["stages"]),
+                   top={t: v for t, v in list(a["stages"].items())[:ATTR_TOP]},
+                   launches=launches)
+        log(f"[41 trace_attr] {name}: {json.dumps(row)} {card}")
+        out[name] = row
+    return out
+
+
+def phase_sweep_and_spmd(P, dev, card):
+    """42: ``scripts.bench_r2_sweep.main`` over prod, prod_gram, tiered and
+    twoply_tuned at a reduced step count (exit 0, one JSON line each);
+    tier0 alone exits 1 with one line naming it (JAX's split-plane step
+    asserts a tiered tail too); ``scripts.bench_spmd.main`` at n = 1 on a
+    one-rank NCCL group (exit 0, one JSON line)."""
+    fv, nd = P["fv"].KERNEL, P["nd"].KERNEL
+    P["graphs"].clear_graphs()
+    fv.launches = nd.launches = 0
+    rc, lines = _tool_lines(P["sweep"].main,
+                            ["--variants", ",".join(SWEEP_VARIANTS)] + SWEEP_ARGS)
+    launches = {"fused_value": fv.launches, "nd_tail": nd.launches}
+    if rc != 0 or [x.get("variant") for x in lines] != list(SWEEP_VARIANTS):
+        raise AssertionError(f"[42 sweep] exit {rc}: {lines}")
+    for x in lines:
+        _positive(x, ("env_steps_per_s",), f"[42 sweep] {x['variant']}")
+        log(f"[42 sweep] {json.dumps(x)}")
+    rc0, refused = _tool_lines(P["sweep"].main, ["--variants", "tier0", "--steps", "2"])
+    if rc0 != 1 or len(refused) != 1 or refused[0].get("variant") != "tier0" \
+            or "error" not in refused[0]:
+        raise AssertionError(f"[42 sweep] tier0: exit {rc0}, {refused}")
+    log(f"[42 sweep] tier0 refused, exit 1: {refused[0]['error']}")
+    P["graphs"].clear_graphs()
+    rc, spmd = _tool_lines(P["spmd"].main, SPMD_ARGS)
+    if rc != 0 or len(spmd) != 1 or spmd[0].get("devices") != 1:
+        raise AssertionError(f"[42 bench_spmd] exit {rc}: {spmd}")
+    _positive(spmd[0], ("env_steps_per_s",), "[42 bench_spmd]")
+    log(f"[42 bench_spmd] n = 1 (a one-rank NCCL group; the scaling column needs more "
+        f"cards): {json.dumps(spmd[0])}")
+    return dict(sweep=lines, tier0=refused[0], spmd=spmd[0], launches=launches)
+
+
 def main() -> int:
     # the port's package first: importing it touches no device
     if not (ROOT / PORT_PACKAGE / "__init__.py").is_file():
@@ -3115,6 +3226,15 @@ def main() -> int:
     guard = phase_guard(P, dev, card)
     parity = phase_parity_and_curve(P, dev, card)
     h2h = phase_head_to_head(P, dev, card)
+    bench = phase_bench(P, dev, card, gt["1ply_chunk4"]["ms_per_step"])
+    roof = phase_roofline(P, dev, card)
+    attr = phase_trace_attr(P, dev, card)
+    sweep = phase_sweep_and_spmd(P, dev, card)
+    # the measurement tools' launches (phases 39-42), each run counted from 0
+    # (bench_spmd's rank is a process of its own)
+    bench_tools = {k: sum(r["launches"][k] for r in (*bench.values(), roof, *attr.values(),
+                                                      sweep))
+                   for k in ("fused_value", "nd_tail")}
     # the tools' launches (phases 35-38), each run counted from 0
     tools_nd = {"stress": stress["a"]["launches"], "guard": guard["launches"],
                 "parity_train": parity["train_launches"], "curve": parity["curve_launches"],
@@ -3138,7 +3258,8 @@ def main() -> int:
             # every path's timed run, each counted from 0 just before it
             "launches": stats["fused_value_launches"] + stats2["fused_value_launches"]
             + sum(t["launches"]["fused_value"] for t in trains.values()) + graph_fv
-            + mesh["launches"]["fused_value"] + a16["fused_value"],
+            + mesh["launches"]["fused_value"] + a16["fused_value"]
+            + bench_tools["fused_value"],
             "max_abs_err": max(max_err, fv2_err, tiered["fv_err"],
                                *(r["fv_err"] for r in scan["kernels"].values())),
             # one 1-ply production step's two launches (tier 1 + tier 2), summed;
@@ -3168,6 +3289,8 @@ def main() -> int:
                     "one_launch": {k: {f: r["fused_value_time"][f]
                                        for f in ("ms", "plain_ms", "bound_ms", "bound_by")}
                                    for k, r in scan["kernels"].items()}},
+                # phases 39-42: the benches, the roofline, trace_attr, the sweep
+                "bench_tools": {"launches": bench_tools["fused_value"]},
             },
             "ok": True,
         },
@@ -3177,7 +3300,7 @@ def main() -> int:
             "source": ND_SOURCE,
             "replaces": ND_REPLACES,
             "launches": stats2["nd_tail_launches"] + train2["launches"]["nd_tail"] + graph_nd
-            + eval_nd + a16["nd_tail"] + sum(tools_nd.values()),
+            + eval_nd + a16["nd_tail"] + sum(tools_nd.values()) + bench_tools["nd_tail"],
             "max_abs_err": max(nd_err, tiered["nd_err"],
                                *(r.get("nd_err", 0.0) for r in scan["kernels"].values())),
             # one 2-ply step's 15 launches at [4096 rows, K = 96], summed
@@ -3219,7 +3342,9 @@ def main() -> int:
                       "tools": {"launches": tools_nd, "stress_one_launch": {
                           f: stress["nd_tail_time"][f]
                           for f in ("rows", "K", "ms_per_launch", "plain_ms", "bound_ms",
-                                    "bound_by")}}},
+                                    "bound_by")}},
+                      # phases 39-42: the 2-ply benches, the roofline, trace_attr, the sweep
+                      "bench_tools": {"launches": bench_tools["nd_tail"]}},
             "ok": True,
         },
         {

@@ -53,6 +53,10 @@ Three functions stack steps into a [T, B] trajectory:
 All three draw the same noise stream from one generator: the graphed
 ones draw each step's noise outside the graph, in step order, so on one
 seed they give ``rollout_loop``'s trajectory.
+
+Stages carry the JAX package's ``jax.named_scope`` names
+(``utils.profiling.scope``): act_t1 and act_t2 around each tier's
+candidate takes, env_step around the env transition.
 """
 from __future__ import annotations
 
@@ -97,6 +101,7 @@ from mlp_ppo_2ply_multi_tpu_torch.model import value_net
 from mlp_ppo_2ply_multi_tpu_torch.model.sampling import orient, sample
 from mlp_ppo_2ply_multi_tpu_torch.ops.fused_value import fused_value
 from mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax import select_action_2ply
+from mlp_ppo_2ply_multi_tpu_torch.utils.profiling import scope
 
 
 class Transition(NamedTuple):
@@ -264,19 +269,20 @@ def _select_action_tiered(
     sample from their truncated tier-1 set)."""
     tier = cfg.model.actor_tier_width
     b = moves.valid.shape[0]
-    idx1, ok1 = _select_set_bits(moves.valid, tier)  # [B, tier]
-    t1 = board_take(moves.boards, idx1)
+    with scope("act_t1"):
+        idx1, ok1 = _select_set_bits(moves.valid, tier)  # [B, tier]
+        t1 = board_take(moves.boards, idx1)
     v1 = fused_value(t1.data, cand_flag[..., None], params)  # [B, tier]
     pick1 = sample(v1, ok1, sgn, gumbel_t1, temperature)  # tier-space index
     a1 = torch.gather(idx1, -1, pick1[..., None])[..., 0]
 
-    wide, sel, sel_ok, in_sub, slot2 = _wide_rows(moves.count, tier, cfg)
-    t2_flag = torch.broadcast_to(cand_flag, (b,))[sel]
-    v2 = fused_value(moves.boards.data[sel], t2_flag[..., None], params)  # [wn, A]
-    a2 = sample(
-        v2, moves.valid[sel] & sel_ok[:, None], None if sgn is None else sgn[sel],
-        gumbel_t2, temperature,
-    )
+    with scope("act_t2"):
+        wide, sel, sel_ok, in_sub, slot2 = _wide_rows(moves.count, tier, cfg)
+        t2_boards = moves.boards.data[sel]
+        t2_flag = torch.broadcast_to(cand_flag, (b,))[sel]
+        t2_valid = moves.valid[sel] & sel_ok[:, None]
+    v2 = fused_value(t2_boards, t2_flag[..., None], params)  # [wn, A]
+    a2 = sample(v2, t2_valid, None if sgn is None else sgn[sel], gumbel_t2, temperature)
     return torch.where(in_sub, a2[slot2], a1), wide & ~in_sub
 
 
@@ -308,32 +314,34 @@ def _select_action_split(
     T = sm.nd_boards.data.shape[-2]
 
     # ---- tier 1: the first `tier` valid slots of every game ----
-    idx1, ok1 = _select_set_bits(sm.valid, tier)  # merged-slot coordinates
-    t1 = board_take(sm.nd_boards, idx1.clamp_max(T - 1))
-    # wide-nd and doubles planes: compact inside the sub-batch (their valid
-    # masks equal the merged rows), then fan out by row
-    idx1_w, _ = _select_set_bits(sm.ndw_keep, tier)
-    idx1_d, _ = _select_set_bits(sm.dd_valid, tier)
-    t1_wd = torch.cat(
-        [board_take(sm.ndw_boards, idx1_w).data, board_take(sm.dd_boards, idx1_d).data]
-    )
-    wn_w = sm.ndw_boards.data.shape[0]
-    slot_wd = torch.where(sm.dd_in, wn_w + sm.dd_slot, sm.ndw_slot)
-    t1 = board_where((sm.ndw_in | sm.dd_in)[:, None], Board(t1_wd[slot_wd]), t1)
+    with scope("act_t1"):
+        idx1, ok1 = _select_set_bits(sm.valid, tier)  # merged-slot coordinates
+        t1 = board_take(sm.nd_boards, idx1.clamp_max(T - 1))
+        # wide-nd and doubles planes: compact inside the sub-batch (their
+        # valid masks equal the merged rows), then fan out by row
+        idx1_w, _ = _select_set_bits(sm.ndw_keep, tier)
+        idx1_d, _ = _select_set_bits(sm.dd_valid, tier)
+        t1_wd = torch.cat(
+            [board_take(sm.ndw_boards, idx1_w).data, board_take(sm.dd_boards, idx1_d).data]
+        )
+        wn_w = sm.ndw_boards.data.shape[0]
+        slot_wd = torch.where(sm.dd_in, wn_w + sm.dd_slot, sm.ndw_slot)
+        t1 = board_where((sm.ndw_in | sm.dd_in)[:, None], Board(t1_wd[slot_wd]), t1)
     v1 = fused_value(t1.data, cand_flag[..., None], params)  # [B, tier]
     pick1 = sample(v1, ok1, sgn, gumbel_t1, temperature)  # tier-space index
     a1 = torch.gather(idx1, -1, pick1[..., None])[..., 0]
 
     # ---- tier 2: wide games at full width on a compacted sub-batch ----
-    wide, sel, sel_ok, in_sub, slot2 = _wide_rows(sm.count, tier, cfg)
-    t2_boards = _pad_boards(_take0(sm.ndw_boards, sm.ndw_slot[sel]), W)
-    if tier < T:
-        nd_rows = _pad_boards(_take0(sm.nd_boards, sel), W)
-        t2_boards = board_where(sm.ndw_in[sel][:, None], t2_boards, nd_rows)
-    dd_rows = _pad_boards(_take0(sm.dd_boards, sm.dd_slot[sel]), W)
-    t2_boards = board_where(sm.dd_in[sel][:, None], dd_rows, t2_boards)
-    t2_flag = torch.broadcast_to(cand_flag, (b,))[sel]
-    t2_valid = sm.valid[sel] & sel_ok[:, None]
+    with scope("act_t2"):
+        wide, sel, sel_ok, in_sub, slot2 = _wide_rows(sm.count, tier, cfg)
+        t2_boards = _pad_boards(_take0(sm.ndw_boards, sm.ndw_slot[sel]), W)
+        if tier < T:
+            nd_rows = _pad_boards(_take0(sm.nd_boards, sel), W)
+            t2_boards = board_where(sm.ndw_in[sel][:, None], t2_boards, nd_rows)
+        dd_rows = _pad_boards(_take0(sm.dd_boards, sm.dd_slot[sel]), W)
+        t2_boards = board_where(sm.dd_in[sel][:, None], dd_rows, t2_boards)
+        t2_flag = torch.broadcast_to(cand_flag, (b,))[sel]
+        t2_valid = sm.valid[sel] & sel_ok[:, None]
     v2 = fused_value(t2_boards.data, t2_flag[..., None], params)  # [wn, W]
     a2 = sample(v2, t2_valid, None if sgn is None else sgn[sel], gumbel_t2, temperature)
     action = torch.where(in_sub, a2[slot2], a1)
@@ -396,14 +404,16 @@ def rollout_step(
             params, state, moves, noise.gumbel_2ply, noise.gumbel_1ply,
             temperature, cfg,
         )
-        res = vec_env.step(state, moves, action, noise.next_dice, cfg.env)
+        with scope("env_step"):
+            res = vec_env.step(state, moves, action, noise.next_dice, cfg.env)
         count, overflow = moves.count, _overflow(moves)
     elif not cfg.movegen.split_planes:
         moves = legal_moves(state.board, state.player, state.dice, cfg.movegen)
         action, v_obs, tier_ov = select_action(
             params, state, moves, noise.gumbel_t1, noise.gumbel_t2, temperature, cfg
         )
-        res = vec_env.step(state, moves, action, noise.next_dice, cfg.env)
+        with scope("env_step"):
+            res = vec_env.step(state, moves, action, noise.next_dice, cfg.env)
         count, overflow = moves.count, tier_ov | _overflow(moves)
     else:
         sm = legal_moves_split(state.board, state.player, state.dice, cfg.movegen)
@@ -415,7 +425,8 @@ def rollout_step(
             params, sm, cand_flag, sgn, noise.gumbel_t1, noise.gumbel_t2,
             temperature, cfg,
         )
-        res = vec_env.step_chosen(state, sm.count, chosen, noise.next_dice, cfg.env)
+        with scope("env_step"):
+            res = vec_env.step_chosen(state, sm.count, chosen, noise.next_dice, cfg.env)
         count, overflow = sm.count, tier_ov | sm.overflow
 
     trunc = ~res.state.game_over & (res.state.step_count >= cfg.env.max_timesteps)

@@ -30,6 +30,10 @@ select is ``cumsum`` + ``torch.searchsorted`` and every take is a gather;
 integer results are bit-identical. Slots that are not ok (beyond a row's
 count) hold whatever the clipped indices produce: consumers read only valid
 slots.
+
+Stages carry the JAX package's ``jax.named_scope`` names
+(``utils.profiling.scope``): nd_front, nd_tail, nd_tail_t1, nd_tail_t2,
+dd_L2-dd_L4 with slotv, sel and take inside each, and mg_merge.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import (
     slot_valid,
     slot_valid_stats,
 )
+from mlp_ppo_2ply_multi_tpu_torch.utils.profiling import scope
 
 
 def _popcount(mask: torch.Tensor) -> torch.Tensor:
@@ -377,25 +382,27 @@ def _nd_two_tier(
     K, T = cfg.nd_dedup_k, cfg.nd_tier
     n_pre = _popcount(valid)
     n = valid.shape[0]
-    after_n, keep_n, pct_n, _ = _nd_tail(
-        board, pa.b1, pb.b1, valid, player, d_hi, d_lo, T, cfg.a_max,
-        cfg.nd_sig_dedup,
-    )
+    with scope("nd_tail_t1"):
+        after_n, keep_n, pct_n, _ = _nd_tail(
+            board, pa.b1, pb.b1, valid, player, d_hi, d_lo, T, cfg.a_max,
+            cfg.nd_sig_dedup,
+        )
     wide = n_pre > T
     wn = max(8, n // cfg.nd_wide_div)
     sel, sel_ok = _select_set_bits(wide, wn)
-    after_w, keep_w, pct_w, _ = _nd_tail(
-        _take0(board, sel),
-        _take0(pa.b1, sel),
-        _take0(pb.b1, sel),
-        valid[sel] & sel_ok[:, None],
-        player[sel],
-        d_hi[sel],
-        d_lo[sel],
-        K,
-        cfg.a_max,
-        cfg.nd_sig_dedup,
-    )
+    with scope("nd_tail_t2"):
+        after_w, keep_w, pct_w, _ = _nd_tail(
+            _take0(board, sel),
+            _take0(pa.b1, sel),
+            _take0(pb.b1, sel),
+            valid[sel] & sel_ok[:, None],
+            player[sel],
+            d_hi[sel],
+            d_lo[sel],
+            K,
+            cfg.a_max,
+            cfg.nd_sig_dedup,
+        )
     in_sub, slot = _rows_in(wide, wn)
     pct = torch.where(in_sub, pct_w[slot], pct_n)
     overflow = (in_sub & ((n_pre > K) | (pct > cfg.a_max))) | (wide & ~in_sub)
@@ -419,8 +426,10 @@ def enumerate_nondoubles(
     plain version on the CPU), whatever ``nd_tail_kernel`` says, since the
     flag only chose the Pallas kernel on the TPU; with the Gram dedup
     (``nd_sig_dedup=False``) in plain PyTorch on any device, as JAX runs its
-    plain ``_nd_tail`` there (the kernel dedups by signature only)."""
-    pa, pb, valid, d_hi, d_lo = _nd_candidates(board, player, dice, passes)
+    plain ``_nd_tail`` there (the kernel dedups by signature only). The
+    single pass runs in scope ``nd_tail``, JAX's scope of the same work."""
+    with scope("nd_front"):
+        pa, pb, valid, d_hi, d_lo = _nd_candidates(board, player, dice, passes)
     K, T = cfg.nd_dedup_k, cfg.nd_tier
     if T and T < K and valid.dim() == 2:
         pl = _nd_two_tier(board, pa, pb, valid, player, d_hi, d_lo, cfg)
@@ -429,9 +438,10 @@ def enumerate_nondoubles(
         keep = torch.where(pl.in_sub[:, None], pl.keep_w[pl.slot], narrow.valid)
         overflow = pl.overflow
     elif not cfg.nd_sig_dedup:
-        after, keep, pct, _ = _nd_tail(
-            board, pa.b1, pb.b1, valid, player, d_hi, d_lo, K, cfg.a_max, False
-        )
+        with scope("nd_tail"):
+            after, keep, pct, _ = _nd_tail(
+                board, pa.b1, pb.b1, valid, player, d_hi, d_lo, K, cfg.a_max, False
+            )
         # candidates lost to the dedup-slot cap or the Q7 presented cap
         overflow = (_popcount(valid) > K) | (pct > cfg.a_max)
     else:
@@ -443,11 +453,12 @@ def enumerate_nondoubles(
             torch.as_tensor(x, device=valid.device), bs
         ).reshape(n)
         cells = board.data.shape[-1]
-        after_d, keep, n_pre, pct, _ = nd_tail_fused(
-            valid.reshape(n, valid.shape[-1]), pa.b1.data.reshape(n, N_SLOTS, cells),
-            pb.b1.data.reshape(n, N_SLOTS, cells), board.data.reshape(n, cells),
-            row(player), row(d_hi), row(d_lo), K, cfg.a_max,
-        )
+        with scope("nd_tail"):
+            after_d, keep, n_pre, pct, _ = nd_tail_fused(
+                valid.reshape(n, valid.shape[-1]), pa.b1.data.reshape(n, N_SLOTS, cells),
+                pb.b1.data.reshape(n, N_SLOTS, cells), board.data.reshape(n, cells),
+                row(player), row(d_hi), row(d_lo), K, cfg.a_max,
+            )
         after = Board(data=after_d.reshape(*bs, K, cells))
         keep = keep.reshape(*bs, K)
         # candidates lost to the dedup-slot cap or the Q7 presented cap
@@ -493,7 +504,8 @@ def enumerate_nondoubles_raw(
 ) -> RawMoves:
     """Non-doubles enumeration without the dedup, filter and cap tail (see
     RawMoves), in exact reference insertion order."""
-    pa, pb, valid, d_hi, d_lo = _nd_candidates(board, player, dice, passes)
+    with scope("nd_front"):
+        pa, pb, valid, d_hi, d_lo = _nd_candidates(board, player, dice, passes)
     after, kok, kpair, sig = _nd_tail_front(
         board, pa.b1, pb.b1, valid, player, d_hi, d_lo, K
     )
@@ -553,8 +565,9 @@ def _expand(
     overflow flag (more legal children than ``width`` slots)."""
     pw = player[..., None]
     dw = die[..., None]
-    valid27, last = slot_valid(front.boards, pw, dw, ctx_entry_axis(ctx))
-    rank = _rank_lanes(last, pw, dw)
+    with scope("slotv"):
+        valid27, last = slot_valid(front.boards, pw, dw, ctx_entry_axis(ctx))
+        rank = _rank_lanes(last, pw, dw)
     full_cc = _popcount(valid27)  # [..., W]
 
     shorts_valid = front.valid & front.only & (full_cc == 0)
@@ -566,11 +579,13 @@ def _expand(
     )
     # select over the flattened [W, 27] grid: parent = idx // 27 is the
     # frontier entry, the local position the slot index
-    idx, out_ok = _select_set_bits(child_valid.flatten(-2), width)
-    parent, slot = idx // N_SLOTS, idx % N_SLOTS
-    pboards = board_take(front.boards, parent)
-    sg, eg, hg = slot_params(pboards, pw, dw, slot)
-    nboards = apply_submove(pboards, pw, sg, eg, hg, out_ok)
+    with scope("sel"):
+        idx, out_ok = _select_set_bits(child_valid.flatten(-2), width)
+        parent, slot = idx // N_SLOTS, idx % N_SLOTS
+    with scope("take"):
+        pboards = board_take(front.boards, parent)
+        sg, eg, hg = slot_params(pboards, pw, dw, slot)
+        nboards = apply_submove(pboards, pw, sg, eg, hg, out_ok)
     nrank = _submove_rank(torch.broadcast_to(pw, slot.shape), sg, eg)
     ponly = torch.gather(full_cc == 1, -1, parent)
     n_children = child_valid.flatten(-2).sum(-1)
@@ -620,9 +635,12 @@ def enumerate_doubles(
         only=torch.broadcast_to((root_cc == 1)[..., None], ok1.shape),
         valid=ok1,
     )
-    front2, shorts1, ov2 = _expand(front, player, die, cfg.w2, ctx)
-    front3, shorts2, ov3 = _expand(front2, player, die, cfg.w3, ctx)
-    front4, shorts3, ov4 = _expand(front3, player, die, cfg.w4, ctx)
+    with scope("dd_L2"):
+        front2, shorts1, ov2 = _expand(front, player, die, cfg.w2, ctx)
+    with scope("dd_L3"):
+        front3, shorts2, ov3 = _expand(front2, player, die, cfg.w3, ctx)
+    with scope("dd_L4"):
+        front4, shorts3, ov4 = _expand(front3, player, die, cfg.w4, ctx)
 
     has4 = front4.valid.any(-1)
     a3 = shorts3.valid.any(-1)
@@ -796,13 +814,14 @@ def legal_moves(
             overflow=torch.where(dd_in, sub.overflow[slot], True),
         )
     width = max(nd.valid.shape[-1], dd.valid.shape[-1])
-    nd, dd = _pad_entries(nd, width), _pad_entries(dd, width)
-    out = MoveSet(
-        boards=board_where(is_double[:, None].expand(n, width), dd.boards, nd.boards),
-        valid=torch.where(is_double[:, None], dd.valid, nd.valid),
-        count=torch.where(is_double, dd.count, nd.count),
-        overflow=torch.where(is_double, dd.overflow, nd.overflow),
-    )
+    with scope("mg_merge"):
+        nd, dd = _pad_entries(nd, width), _pad_entries(dd, width)
+        out = MoveSet(
+            boards=board_where(is_double[:, None].expand(n, width), dd.boards, nd.boards),
+            valid=torch.where(is_double[:, None], dd.valid, nd.valid),
+            count=torch.where(is_double, dd.count, nd.count),
+            overflow=torch.where(is_double, dd.overflow, nd.overflow),
+        )
     return _unflatten_moveset(out, bs)
 
 
@@ -850,7 +869,8 @@ def legal_moves_split(
     dice = torch.broadcast_to(torch.as_tensor(dice).to(torch.int64), (n, 2))
     is_double = dice[:, 0] == dice[:, 1]
 
-    pa, pb, valid_cells, d_hi, d_lo = _nd_candidates(board, player, dice)
+    with scope("nd_front"):
+        pa, pb, valid_cells, d_hi, d_lo = _nd_candidates(board, player, dice)
     pl = _nd_two_tier(board, pa, pb, valid_cells, player, d_hi, d_lo, cfg)
 
     w_dd = max(8, -(-n // cfg.dd_subbatch_div))

@@ -24,13 +24,15 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen2 import _nd_tail
 from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import CudaKernel, aligned16
+from mlp_ppo_2ply_multi_tpu_torch.utils import cost
+from mlp_ppo_2ply_multi_tpu_torch.utils.cost import CORE_OPS_PER_S, HBM_BYTES_PER_S
 
 N_SLOTS = 27
 N_CAND = 2 * (N_SLOTS + 1) * N_SLOTS  # 1512
@@ -146,6 +148,57 @@ def launch_kernel(valid, b1a, b1b, b0, player, d_hi, d_lo, K: int, a_max: int) -
     return after, keep, n_pre, pct, kpair
 
 
+def child_rows(valid: torch.Tensor, K: int) -> torch.Tensor:
+    """Per row, the distinct 52-byte child rows of the pass-A and pass-B
+    tables (27 each) that the kernel must read: those of the first min(count,
+    K) set cells, and pass B's child 26 where the count is under K (the
+    clip slot). Cell c lies in block c // 27 (pass-A pairs 0..26, singles
+    27, pass-B pairs 28..54, singles 55); a pair takes the child of its
+    block, a single the child of its place in the block."""
+    c = torch.arange(N_CAND, device=valid.device)
+    blk, loc = c // N_SLOTS, c % N_SLOTS
+    cpass = (blk >= N_SLOTS + 1).long()
+    bb = blk - (N_SLOTS + 1) * cpass
+    child = N_SLOTS * cpass + torch.where(bb < N_SLOTS, bb, loc)  # 0..53
+    onehot = torch.nn.functional.one_hot(child, 2 * N_SLOTS).float()
+    sel = valid & (torch.cumsum(valid.int(), -1) <= K)
+    used = (sel.float() @ onehot) > 0
+    used[:, 2 * N_SLOTS - 1] |= valid.sum(-1) < K
+    return used.sum(-1)
+
+
+def bound(valid: torch.Tensor, K: int) -> Dict[str, object]:
+    """Least time for the kernel on these rows: the bytes it must move
+    (1512 candidate bytes, the child rows its selected candidates use,
+    ``child_rows``, the 52-byte root and three int32 in; K x 52 afterstates,
+    keep and kpair bytes and two int32 out) over HBM bandwidth, and the
+    operations this data needs over the CUDA-core rate: every candidate bit
+    is read by the select, and each present candidate (at most K) is
+    decoded, applied and signed (counted as 64 operations) and compared
+    with the earlier ones. Reads the data (sums to the host): not inside a
+    timed window or a capture."""
+    n = valid.shape[0]
+    m = valid.sum(-1).clamp_max(K).to(torch.int64)
+    children = int(child_rows(valid, K).sum())
+    nbytes = n * (N_CAND + N_CELLS + 3 * 4) + N_CELLS * children + n * (
+        K * N_CELLS + 2 * K + 2 * 4)
+    ops = n * N_CAND + int((64 * m + m * (m - 1) // 2).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CORE_OPS_PER_S * 1e3
+    return dict(
+        rows=n, K=K, present_per_row=float(m.float().mean()) if n else 0.0,
+        child_rows_per_row=children / max(n, 1), bytes=nbytes, ops=ops,
+        bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
+
+
+def _count(valid: torch.Tensor, K: int) -> Dict[str, float]:
+    """One call's count for ``utils.cost``: its integer operations and bytes."""
+    b = bound(valid, K)
+    return {"elementwise_ops": b["ops"], "bytes": b["bytes"]}
+
+
 def nd_tail_fused(
     valid, b1a, b1b, b0, player, d_hi, d_lo, K: int, a_max: int
 ) -> Outputs:
@@ -157,9 +210,10 @@ def nd_tail_fused(
     if not isinstance(valid, torch.Tensor):
         raise TypeError("valid must be a torch.Tensor")
     kind = valid.device.type
-    if kind == "cpu":
-        return nd_tail_plain(valid, b1a, b1b, b0, player, d_hi, d_lo, K, a_max)
-    if kind == "cuda":
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"nd_tail_fused cannot run on device {valid.device}")
+    with cost.kernel("nd_tail_kernel", lambda: _count(valid, K)):
+        if kind == "cpu":
+            return nd_tail_plain(valid, b1a, b1b, b0, player, d_hi, d_lo, K, a_max)
         ops = kernel_operands(valid, b1a, b1b, b0, player, d_hi, d_lo, K)
         return launch_kernel(*ops, K, a_max)
-    raise ValueError(f"nd_tail_fused cannot run on device {valid.device}")

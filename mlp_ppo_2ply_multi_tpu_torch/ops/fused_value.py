@@ -23,7 +23,8 @@ Two implementations of one function, with the TPU kernel's rounding points
   bias/head vector) are made once per parameter set (``packed_params``).
 
 ``fused_value`` routes a CPU tensor to the plain version and a CUDA tensor
-to the kernel, and raises on anything else.
+to the kernel, and raises on anything else. ``bound`` is the kernel's least
+time on given rows; ``utils.cost`` counts a call by its formula.
 
 Under a CUDA graph capture the packed operands are made from the live
 parameter tensors by captured ops (``packed_params``), so every replay
@@ -43,6 +44,12 @@ import torch
 
 from mlp_ppo_2ply_multi_tpu_torch.core.device import device_constant
 from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import CudaKernel, aligned16
+from mlp_ppo_2ply_multi_tpu_torch.utils import cost
+from mlp_ppo_2ply_multi_tpu_torch.utils.cost import (
+    BF16_FLOP_PER_S,
+    HBM_BYTES_PER_S,
+    MUFU_OPS_PER_S,
+)
 
 N_CELLS = 52  # 48 point cells + bar x2 + off x2 (engine/board.py layout)
 N_REP = 4 * N_CELLS  # 208
@@ -281,6 +288,37 @@ def launch_kernel(boards, f, gpack, head) -> torch.Tensor:
     return out
 
 
+def bound(boards: torch.Tensor, hidden: int = HIDDEN) -> Dict[str, object]:
+    """Least time for the kernel on these rows: the bytes it must move
+    (boards + per-row flag in, f32 out, params) over HBM bandwidth, and the
+    bf16 products this data needs (the nonzero lanes of r times G, plus the
+    head) over the bf16 peak. Also the floors of the kernel's design: the
+    dense 208 x h layer-1 product over the bf16 peak, and the sigmoid's two
+    MUFU operations (ex2, rcp) per hidden unit over the MUFU rate. Reads
+    the data (a sum to the host): not inside a timed window or a capture."""
+    c = boards.reshape(-1, N_CELLS).to(torch.int32)
+    rows = c.shape[0]
+    nnz = int(c[:, :48].clamp(0, 4).sum()) + int((c[:, 48:] > 0).sum())
+    ops = 2 * nnz * hidden + rows * 2 * hidden
+    dense_ops = rows * (2 * N_REP * hidden + 2 * hidden)
+    nbytes = rows * (N_CELLS + 1 + 4) + N_REP * hidden * 2 + hidden * (4 + 4 + 2) + 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_FLOP_PER_S * 1e3
+    return dict(
+        rows=rows, nnz_lanes_per_row=nnz / max(rows, 1), bytes=nbytes, ops=ops,
+        dense_ops=dense_ops, bytes_ms=t_bytes, ops_ms=t_ops,
+        dense_ops_ms=dense_ops / BF16_FLOP_PER_S * 1e3,
+        sigmoid_ms=rows * hidden * 2 / MUFU_OPS_PER_S * 1e3,
+        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
+
+
+def _count(boards: torch.Tensor) -> Dict[str, float]:
+    """One call's count for ``utils.cost``: its bf16 products and bytes."""
+    b = bound(boards)
+    return {"flops": b["ops"], "bytes": b["bytes"]}
+
+
 def fused_value(
     boards_data: torch.Tensor, flag: torch.Tensor, params: Dict[str, torch.Tensor]
 ) -> torch.Tensor:
@@ -293,8 +331,9 @@ def fused_value(
     raises."""
     _check_boards(boards_data)
     kind = boards_data.device.type
-    if kind == "cpu":
-        return fused_value_plain(boards_data, flag, params)
-    if kind == "cuda":
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"fused_value cannot run on device {boards_data.device}")
+    with cost.kernel("fused_value_kernel", lambda: _count(boards_data)):
+        if kind == "cpu":
+            return fused_value_plain(boards_data, flag, params)
         return launch_kernel(*kernel_operands(boards_data, flag, params))
-    raise ValueError(f"fused_value cannot run on device {boards_data.device}")

@@ -22,16 +22,21 @@ the kernel, and raises on anything else. The sorted move generator
 (``engine.movegen``, ``algo="sorted"``) takes its first-ply, parent and
 forced-shorter rows through it; the canonical engine's ``board_take`` stays
 ``torch.gather``. ``plan`` says which branch of the kernel (a game's table
-staged in shared memory, or its used rows gathered) a shape takes.
+staged in shared memory, or its used rows gathered) a shape takes, and
+``bound`` the kernel's least time on given inputs; ``utils.cost`` counts a
+call by its formula.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Dict
 
 import torch
 
 from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import CudaKernel
+from mlp_ppo_2ply_multi_tpu_torch.utils import cost
+from mlp_ppo_2ply_multi_tpu_torch.utils.cost import HBM_BYTES_PER_S
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "take_rows.cu"
 _INT32_MAX = 2**31 - 1
@@ -125,6 +130,23 @@ def launch_kernel(boards: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def bound(boards: torch.Tensor, idx: torch.Tensor) -> Dict[str, object]:
+    """Least time for the kernel on these inputs, bound by bytes (it does no
+    arithmetic beyond addresses): the distinct in-range source rows each
+    game's indices use, read once, the indices, and N x K x C bytes
+    written, over HBM bandwidth. Reads the data (a sum to the host): not
+    inside a timed window or a capture."""
+    n, w, c = boards.shape
+    k = idx.shape[1]
+    ok = (idx >= 0) & (idx < w)
+    used = torch.zeros((n, w), dtype=torch.int32, device=boards.device)
+    used.scatter_reduce_(1, idx.long().clamp(0, max(w - 1, 0)), ok.int(), reduce="amax")
+    rows = int(used.sum())
+    nbytes = rows * c + idx.numel() * idx.element_size() + n * k * c
+    return dict(rows_used_per_game=rows / max(n, 1), bytes=nbytes,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
 def take_rows(boards: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[n, k] = boards[n, idx[n, k]]`` (zero rows for indices outside
     [0, W)). A CPU tensor goes to ``take_rows_plain``; a CUDA tensor to the
@@ -133,8 +155,9 @@ def take_rows(boards: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if not isinstance(boards, torch.Tensor):
         raise TypeError("boards must be a torch.Tensor")
     kind = boards.device.type
-    if kind == "cpu":
-        return take_rows_plain(boards, idx)
-    if kind == "cuda":
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"take_rows cannot run on device {boards.device}")
+    with cost.kernel("take_rows_kernel", lambda: {"bytes": bound(boards, idx)["bytes"]}):
+        if kind == "cpu":
+            return take_rows_plain(boards, idx)
         return launch_kernel(boards, idx)
-    raise ValueError(f"take_rows cannot run on device {boards.device}")

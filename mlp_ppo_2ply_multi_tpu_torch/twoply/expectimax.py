@@ -29,6 +29,10 @@ Two scorers compute the opponent response, with JAX's accumulation order:
 
 Sampling takes injected Gumbel noise: ``argmax(logits + gumbel)`` is what
 ``jax.random.categorical`` computes.
+
+The unrolled scorer's stages carry the JAX package's ``jax.named_scope``
+names (``utils.profiling.scope``): ndpass, nd{hi}{lo} and dd{die} per roll,
+score around each roll's scoring.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board, pack_board
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import MoveSet, board_take, slot_stats
 from mlp_ppo_2ply_multi_tpu_torch.model import value_net
 from mlp_ppo_2ply_multi_tpu_torch.ops.fused_value import fused_value
+from mlp_ppo_2ply_multi_tpu_torch.utils.profiling import scope
 
 _NEG = -1e9
 
@@ -305,15 +310,16 @@ def _wor_unrolled(
     dev = boards.data.device
 
     def score_one(ms: MoveSet, prob: float, cap_active: bool) -> torch.Tensor:
-        valid = ms.valid
-        if cap_active:
-            rank = torch.cumsum(valid.to(torch.int32), -1, dtype=torch.int32)
-            valid = valid & (rank <= cap)
-        v = oriented_values(params, ms.boards, opp_k[..., None], cfg)
-        v = torch.where(valid, v, _NEG)
-        top, _ = topk_small(v, topn)
-        avg = _top_mean(top, top > _NEG / 2)
-        return torch.where(valid.any(-1), avg * prob, 0.0)
+        with scope("score"):
+            valid = ms.valid
+            if cap_active:
+                rank = torch.cumsum(valid.to(torch.int32), -1, dtype=torch.int32)
+                valid = valid & (rank <= cap)
+            v = oriented_values(params, ms.boards, opp_k[..., None], cfg)
+            v = torch.where(valid, v, _NEG)
+            top, _ = topk_small(v, topn)
+            avg = _top_mean(top, top > _NEG / 2)
+            return torch.where(valid.any(-1), avg * prob, 0.0)
 
     # first-ply tables, children and root contexts for all six dies, and the
     # children's die-independent stats, each computed once
@@ -332,24 +338,26 @@ def _wor_unrolled(
             hi, lo = max(r0, r1), min(r0, r1)
             d_hi = torch.full(bs, hi, dtype=torch.int64, device=dev)
             d_lo = torch.full(bs, lo, dtype=torch.int64, device=dev)
-            pa = movegen2._run_pass_pre(
-                _at(s1_all, hi - 1), _at(b1_all, hi - 1), opp_k, d_lo,
-                ctx=_at(ctx_all, lo - 1), stats=_at(stats_all, hi - 1),
-            )
-            pb = movegen2._run_pass_pre(
-                _at(s1_all, lo - 1), _at(b1_all, lo - 1), opp_k, d_hi,
-                ctx=_at(ctx_all, hi - 1), stats=_at(stats_all, lo - 1),
-            )
+            with scope("ndpass"):
+                pa = movegen2._run_pass_pre(
+                    _at(s1_all, hi - 1), _at(b1_all, hi - 1), opp_k, d_lo,
+                    ctx=_at(ctx_all, lo - 1), stats=_at(stats_all, hi - 1),
+                )
+                pb = movegen2._run_pass_pre(
+                    _at(s1_all, lo - 1), _at(b1_all, lo - 1), opp_k, d_hi,
+                    ctx=_at(ctx_all, hi - 1), stats=_at(stats_all, lo - 1),
+                )
             mgr = mg
             if tw.nd_reply_widths:
                 k = tw.nd_reply_widths[nd_pos]
                 mgr = dataclasses.replace(mg, nd_dedup_k=k, a_max=k)
             nd_pos += 1
             dice = dice_all[i]
-            ms = movegen2.enumerate_nondoubles_batched(
-                boards, opp_k, dice, mgr, passes=(pa, pb)
-            )
-            total = total + score_one(ms, prob, False)
+            with scope(f"nd{hi}{lo}"):
+                ms = movegen2.enumerate_nondoubles_batched(
+                    boards, opp_k, dice, mgr, passes=(pa, pb)
+                )
+                total = total + score_one(ms, prob, False)
             if tw.nd_reply_widths:
                 flags = flags | ms.overflow
         else:
@@ -361,10 +369,11 @@ def _wor_unrolled(
                     nd_dedup_k=min(mg.nd_dedup_k, am),
                 )
             die = dice_all[i, 0]
-            ms = movegen2.enumerate_doubles_batched(
-                boards, opp_k, die, mgd, s1=_at(s1_all, r0 - 1)
-            )
-            total = total + score_one(ms, prob, r0 <= 3)
+            with scope(f"dd{r0}"):
+                ms = movegen2.enumerate_doubles_batched(
+                    boards, opp_k, die, mgd, s1=_at(s1_all, r0 - 1)
+                )
+                total = total + score_one(ms, prob, r0 <= 3)
             if tw.dd_reply_widths:
                 flags = flags | ms.overflow
     return total, flags

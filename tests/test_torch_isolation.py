@@ -47,9 +47,11 @@ def test_isolation_covers_every_port_module():
     the sorted engine (its hashes, dedup and takes) with its trajectory
     script, the ring buffer, profiling, the fsspec mirror, the mesh
     (distributed, sharding and their multi-process script), the position
-    sampler and the rules-parity and quality tools (the rules stress, the
+    sampler, the rules-parity and quality tools (the rules stress, the
     2-ply decision guard, the learning-curve sweep and the parity trainer)
-    are among them."""
+    and the measurement tools (the benches, the variant sweep, the
+    weak-scaling bench, the roofline, trace_attr and the cost counter) are
+    among them."""
     for m in (
         "mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax",
         "mlp_ppo_2ply_multi_tpu_torch.experimental.nd_tail",
@@ -85,6 +87,13 @@ def test_isolation_covers_every_port_module():
         "mlp_ppo_2ply_multi_tpu_torch.scripts.twoply_decision_guard",
         "mlp_ppo_2ply_multi_tpu_torch.scripts.eval_curve",
         "mlp_ppo_2ply_multi_tpu_torch.scripts.run_parity_trainer",
+        "mlp_ppo_2ply_multi_tpu_torch.scripts.bench",
+        "mlp_ppo_2ply_multi_tpu_torch.scripts.bench_twoply",
+        "mlp_ppo_2ply_multi_tpu_torch.scripts.bench_r2_sweep",
+        "mlp_ppo_2ply_multi_tpu_torch.scripts.bench_spmd",
+        "mlp_ppo_2ply_multi_tpu_torch.scripts.roofline",
+        "mlp_ppo_2ply_multi_tpu_torch.scripts.trace_attr",
+        "mlp_ppo_2ply_multi_tpu_torch.utils.cost",
     ):
         assert m in MODULES, m
     assert (ROOT / "chip_smoke.py").exists()
