@@ -1,0 +1,10 @@
+"""Device ms of the ``twoply`` stage a step in the traced window, by the
+program's own clock inside the graphed step: the 2-ply scorer (all of
+``select_action_2ply``), between the device stamps the tracer writes at its
+start and at the next stage's start (the first step of every captured chunk,
+in each update of the window; the mean over them)."""
+from benchmark.metrics._program_trace import stage_ms
+
+
+def read(ctx):
+    return stage_ms(ctx, "twoply")

@@ -49,7 +49,12 @@ Phases, in order; any failure exits non-zero:
 1. device: torch's view of the card and nvidia-smi's name and power limit;
 2. build: one nvcc per kernel source, started together (seconds,
    registers, spills, shared memory), and the tensor-core instructions
-   (HMMA/HGMMA) in fused_value_kernel's SASS, which must not be 0;
+   (HMMA/HGMMA) in fused_value_kernel's SASS, which must not be 0; then
+   the tracer's stamp kernel against its plain version on one script of
+   stamps (columns 0-3, each row kind, the cursor wrapping past the ring's
+   slots): cursors, sequence columns and untouched cells equal, the card's
+   stamps rising in launch order and reading a spin's CUDA-event time in
+   nanoseconds;
 3. kernel vs plain (1-ply): fused_value against ``fused_value_plain`` at
    the main path's two shapes, on random in-domain boards and on the real
    candidate boards of a production step;
@@ -164,8 +169,9 @@ Phases, in order; any failure exits non-zero:
     tp update at B = 1024 against the update without tp and JAX's tp rule;
     (c) ``--remote-dir`` exits 2 naming fsspec where fsspec does not
     import; (d) the ring buffer's pushes and samples on the card with no
-    host sync, a push replayed in a CUDA graph, and ``profiling.profile``
-    around a graphed rollout within 10% of CUDA events;
+    host sync, a push replayed in a CUDA graph, and the tracer's record of
+    a graphed rollout (launch wait + stage ms of the stamped steps x steps)
+    within 10% of CUDA events around it;
 30. the tiered 1-ply step (``apps.train``'s --production --tiered config):
     card vs CPU at B = 256 (every ``Tiered`` field bit-equal, boards at
     valid slots; integer state on agreeing decisions); fused_value at
@@ -273,6 +279,13 @@ TAKE_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/ops/csrc/take_rows.cu"
 TAKE_REPLACES = ("scripts/probe_pallas_batched_dot.py:55 (P1 take_pallas), "
                  "scripts/probe_pallas_batched_dot.py:86 (P2 take_pallas_fused), "
                  "scripts/probe_pallas_batched_dot.py:214 (P3 take_bdiag)")
+STAMP_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/ops/csrc/stamp.cu"
+# phase 2's stamp script, (column, close) in launch order: columns 0-3,
+# close 0 and each row kind 1-3, 8 closed rows in 3 slots (two wraps)
+STAMP_SLOTS = 3
+STAMP_SCRIPT = ((0, 0), (1, 0), (2, 0), (3, 1), (0, 2), (1, 3), (0, 0), (2, 2), (3, 3),
+                (1, 1), (0, 1), (2, 0), (3, 2), (1, 0))
+STAMP_UNTOUCHED = -7  # what a ring cell holds until a stamp writes it
 # the probe modes run on the probe's main path: one JAX mode of each of P1,
 # P2 and P3
 PROBE_MODES = ("batched", "fused", "bdiag8")
@@ -339,7 +352,7 @@ def _port():
     from mlp_ppo_2ply_multi_tpu_torch.io import checkpoint
     from mlp_ppo_2ply_multi_tpu_torch.learner import td
     from mlp_ppo_2ply_multi_tpu_torch.model import value_net
-    from mlp_ppo_2ply_multi_tpu_torch.ops import fused_value
+    from mlp_ppo_2ply_multi_tpu_torch.ops import fused_value, stamp
     from mlp_ppo_2ply_multi_tpu_torch.twoply import expectimax
     from mlp_ppo_2ply_multi_tpu_torch.apps import evaluate
     from mlp_ppo_2ply_multi_tpu_torch.core import config as config_mod
@@ -368,6 +381,7 @@ def _port():
         curve=eval_curve, parity=run_parity_trainer,
         tiered=tiered,
         sharding=sharding, distributed=distributed, profiling=profiling, ring=ring_buffer,
+        stamp=stamp,
         mpd=multiprocess_distributed, remote=remote,
         rollout=rollout, Config=Config, board=board,
         movegen2=movegen2, vec_env=vec_env, value_net=value_net,
@@ -496,7 +510,7 @@ def sass_mma_count(so, kernel):
 def phase_build(P):
     """One nvcc per kernel source, all started together."""
     fv, nd = P["fv"], P["nd"]
-    kernels = (fv.KERNEL, nd.KERNEL, P["take"].KERNEL)
+    kernels = (fv.KERNEL, nd.KERNEL, P["take"].KERNEL, P["stamp"].KERNEL)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.load(), kernels))
@@ -516,6 +530,67 @@ def phase_build(P):
         f"{'not measured (no cuobjdump)' if mma is None else mma}")
     if mma == 0:
         raise AssertionError("fused_value_kernel has no tensor-core instruction")
+
+
+def phase_stamp(P, dev, card):
+    """2: the stamp kernel (``ops.stamp.launch_kernel``) and its plain
+    version (``stamp_plain``) run STAMP_SCRIPT into identical int64
+    [STAMP_SLOTS, WIDTH] rings and cursors; the cursors, the rows' last
+    columns (sequence x 8 + kind) and the untouched cells must be equal, and
+    equal to the script's own bookkeeping, and the card's stamps rise in
+    launch order. Two stamps around a spin read its CUDA-event time in
+    nanoseconds (within 2% + 20 us). Then one launch's device time, queued
+    behind a spin."""
+    S, PR = P["stamp"], P["profiling"]
+    width = PR.WIDTH
+    ring = torch.full((STAMP_SLOTS, width), STAMP_UNTOUCHED, dtype=torch.int64)
+    cur = torch.zeros(1, dtype=torch.int64)
+    dring, dcur = ring.clone().to(dev), cur.clone().to(dev)
+    _sync(dev)
+    writer, seq = {}, 0  # (slot, column) -> the launch that wrote it last
+    n0 = S.KERNEL.launches
+    for i, (col, close) in enumerate(STAMP_SCRIPT):
+        S.launch_kernel(dring, dcur, col, close)
+        S.stamp_plain(ring, cur, col, close)
+        writer[(seq % STAMP_SLOTS, col)] = i
+        if close:
+            writer[(seq % STAMP_SLOTS, width - 1)] = i
+            seq += 1
+    _sync(dev)
+    got = dring.cpu()
+    untouched = torch.ones_like(got, dtype=torch.bool)
+    for slot, col in writer:
+        untouched[slot, col] = False
+    order = sorted((i, slot, col) for (slot, col), i in writer.items() if col < width - 1)
+    times = [int(got[slot, col]) for _, slot, col in order]
+    out = dict(launches=S.KERNEL.launches - n0, cursor=int(dcur), plain_cursor=int(cur),
+               rows=got[:, -1].tolist(), plain_rows=ring[:, -1].tolist(),
+               untouched_equal=bool(torch.equal(got == STAMP_UNTOUCHED, untouched)
+                                    and torch.equal(ring == STAMP_UNTOUCHED, untouched)),
+               rising=all(0 < a <= b for a, b in zip(times, times[1:])))
+    one = torch.full((1, width), STAMP_UNTOUCHED, dtype=torch.int64, device=dev)
+    one_cur = torch.zeros(1, dtype=torch.int64, device=dev)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    S.launch_kernel(one, one_cur, 0, 0)
+    e0.record()
+    torch.cuda._sleep(10**7)  # ~5 ms at the H100's boost clock
+    e1.record()
+    S.launch_kernel(one, one_cur, 1, 1)
+    _sync(dev)
+    out.update(spin_events_ms=e0.elapsed_time(e1), spin_stamps_ms=int(one[0, 1] - one[0, 0]) / 1e6)
+    out["ms_per_launch"] = PR.queued_ms_per_round(
+        [lambda: S.launch_kernel(one, one_cur, 0, 1)], dev, rounds=1000)
+    log(f"[2 stamp] kernel vs plain over {len(STAMP_SCRIPT)} stamps into {STAMP_SLOTS} slots: "
+        f"{json.dumps(out)} {card}")
+    if out["launches"] != len(STAMP_SCRIPT) or not (out["cursor"] == out["plain_cursor"] == seq):
+        raise AssertionError(f"[2 stamp] launches or cursors: {out}")
+    if out["rows"] != out["plain_rows"] or not out["untouched_equal"] or not out["rising"]:
+        raise AssertionError(f"[2 stamp] the card's ring differs from the plain one: {got.tolist()} "
+                             f"vs {ring.tolist()}")
+    if abs(out["spin_stamps_ms"] - out["spin_events_ms"]) > 0.02 * out["spin_events_ms"] + 0.02:
+        raise AssertionError(f"[2 stamp] stamps {out['spin_stamps_ms']} ms around a spin of "
+                             f"{out['spin_events_ms']} ms by events: not nanoseconds")
+    return out
 
 
 def capture_candidates(P, params, state, cfg, dev, gen):
@@ -573,6 +648,7 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     fv.KERNEL.launches = 0
+    P["stamp"].KERNEL.launches = 0  # the kernels line counts the stamps from here on
     t0 = time.perf_counter()
     ev0.record()
     ts = []
@@ -2225,8 +2301,11 @@ def phase_ring_and_profile(P, dev, gen, card):
     """29d: the ring buffer on the card (10 pushes of [4096, 52] boards and
     values into 8 slots and 64 samples by a CUDA generator, under
     sync-debug "error"; a push captured in a CUDA graph and replayed), and
-    ``profiling.profile`` around a graphed 1-ply rollout (16 steps, chunk
-    4, B = 4096), whose time agrees with CUDA events within 10%."""
+    the tracer's record of a graphed 1-ply rollout (16 steps, chunk 4,
+    B = 4096): every row read (none lost or stale: the host's count of the
+    graph's rows is the card's cursor), and the launch wait plus the
+    stamped steps' mean stage ms times 16 agrees with CUDA events around the
+    call within 10%."""
     RB, PR, R = P["ring"], P["profiling"], P["rollout"]
     mk = lambda: {"boards": torch.randint(0, 16, (B_PROD, 52), generator=gen, device=dev
                                           ).to(torch.int8),
@@ -2270,28 +2349,34 @@ def phase_ring_and_profile(P, dev, gen, card):
     def graphed_rollout():
         return R.rollout_chunked(params, state, 1.0, cfg, 16, chunk=4, gen=gen, device=dev)
 
-    timed = PR.profile(graphed_rollout)
-    timed()  # captures the graph
-    name = graphed_rollout.__qualname__
+    graphed_rollout()  # captures the graph
     pairs = []
     for _ in range(5):
-        before = PR.profiling_data[name]["total_s"]
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        timed()
+        graphed_rollout()
         e1.record()
+        PR.trace_flush()  # no learner follows: close the update's record
         _sync(dev)
-        pairs.append(((PR.profiling_data[name]["total_s"] - before) * 1e3, e0.elapsed_time(e1)))
-    prof_ms, ev_ms = sorted(pairs)[2]
+        rec = PR.trace_records()[-1]
+        if (rec["lost_rows"], rec["stale_rows"], len(rec["stages"])) != (0, 0, 4) \
+                or rec["launch_wait_ms"] is None:
+            raise AssertionError(f"[29 ring] the tracer's record of 4 chunks (a stamped step "
+                                 f"each, a launch row) is not whole: {rec}")
+        step_ms = [sum(st.values()) for st in rec["stages"]]
+        traced = rec["launch_wait_ms"] + sum(step_ms) / len(step_ms) * 16
+        pairs.append((traced, e0.elapsed_time(e1)))
+    traced_ms, ev_ms = sorted(pairs)[2]
     ops = PR.device_op_times(graphed_rollout)
     P["graphs"].clear_graphs()
-    out = dict(profile_ms=prof_ms, events_ms=ev_ms, rel=abs(prof_ms - ev_ms) / ev_ms,
+    out = dict(traced_ms=traced_ms, events_ms=ev_ms, rel=abs(traced_ms - ev_ms) / ev_ms,
                pairs_ms=pairs, device_ops=len(ops), device_ms=sum(ops.values()),
                top_ops={k[:60]: v for k, v in list(ops.items())[:5]})
     log(f"[29 ring] ring buffer: 10 pushes, 64 samples, no host sync; a push captured "
-        f"and replayed 3 times; profile vs events: {json.dumps(out)} {card}")
+        f"and replayed 3 times; the tracer's rollout record (launch wait + stamped steps' "
+        f"stage ms x 16) vs events: {json.dumps(out)} {card}")
     if out["rel"] > 0.10:
-        raise AssertionError(f"[29 ring] profile {prof_ms:.3f} ms vs events {ev_ms:.3f} ms")
+        raise AssertionError(f"[29 ring] traced {traced_ms:.3f} ms vs events {ev_ms:.3f} ms")
     return out
 
 
@@ -3146,6 +3231,7 @@ def main() -> int:
     name, count, smi = phase_device()
     card = f"[{smi}]"
     phase_build(P)
+    stamp_check = phase_stamp(P, dev, card)
 
     cfg = production_config(P)
     params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
@@ -3371,6 +3457,29 @@ def main() -> int:
             "ok": True,
         },
     ]
+    stamp_launches = P["stamp"].KERNEL.launches
+    if (stamp_launches > 0) != P["profiling"].tracing():
+        raise AssertionError(f"stamp launched {stamp_launches} times with tracing "
+                             f"{'on' if P['profiling'].tracing() else 'off'}")
+    kernels.append({
+        "name": "stamp",
+        "route": "cuda",
+        "source": STAMP_SOURCE,
+        "replaces": None,  # the tracer's clock: no TPU kernel
+        # every stamp from the main path's run (phase 4) on: the rollouts'
+        # stage stamps, the launch stamps, the learner's
+        "launches": stamp_launches,
+        # phase 2: the card's ring against the plain one, cell for cell
+        "max_abs_err": 0,
+        "ms": stamp_check["ms_per_launch"],
+        "plain_ms": None,
+        "bound_ms": None,
+        "bound_by": None,
+        "library_ms": None,
+        "paths": {"check": {k: stamp_check[k] for k in ("launches", "spin_events_ms",
+                                                        "spin_stamps_ms")}},
+        "ok": True,
+    })
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

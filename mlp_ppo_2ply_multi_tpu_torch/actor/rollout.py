@@ -56,7 +56,15 @@ seed they give ``rollout_loop``'s trajectory.
 
 Stages carry the JAX package's ``jax.named_scope`` names
 (``utils.profiling.scope``): act_t1 and act_t2 around each tier's
-candidate takes, env_step around the env transition.
+candidate takes, env_step around the env transition. Around them, every
+branch of ``rollout_step`` runs three stages of its own
+(``utils.profiling.stage``): ``movegen`` (the legal moves), ``act`` (1-ply:
+the observation value, both tiers, the draw) or ``twoply`` (all of
+``select_action_2ply``), and ``env`` (the env step, the reset, the
+``Transition``). The tracer stamps their boundaries on the device in the
+first step of every chunk (``run_steps``), inside the graph too; the
+rollout is its ``rollout`` span, each graph launch a ``replay`` span, and
+a ``launch`` stamp precedes the update's first launch.
 """
 from __future__ import annotations
 
@@ -101,7 +109,8 @@ from mlp_ppo_2ply_multi_tpu_torch.model import value_net
 from mlp_ppo_2ply_multi_tpu_torch.model.sampling import orient, sample
 from mlp_ppo_2ply_multi_tpu_torch.ops.fused_value import fused_value
 from mlp_ppo_2ply_multi_tpu_torch.twoply.expectimax import select_action_2ply
-from mlp_ppo_2ply_multi_tpu_torch.utils.profiling import scope
+from mlp_ppo_2ply_multi_tpu_torch.utils import profiling
+from mlp_ppo_2ply_multi_tpu_torch.utils.profiling import scope, stage
 
 
 class Transition(NamedTuple):
@@ -392,31 +401,44 @@ def rollout_step(
     temperature = _temperature(temperature, dev)
 
     if tiered:
-        ti = xt.legal_moves_tiered(state.board, state.player, state.dice, cfg.movegen)
-        chosen, v_obs = xt.chosen_tiered(
-            params, state, ti, noise.gumbel_t1, noise.gumbel_t2, temperature, cfg
-        )
-        res = vec_env.step_chosen(state, ti.count, chosen, noise.next_dice, cfg.env)
-        count, overflow = ti.count, ti.overflow
-    elif cfg.twoply.enabled:
-        moves = legal_moves(state.board, state.player, state.dice, cfg.movegen)
-        action, v_obs = select_action_2ply(
-            params, state, moves, noise.gumbel_2ply, noise.gumbel_1ply,
-            temperature, cfg,
-        )
-        with scope("env_step"):
-            res = vec_env.step(state, moves, action, noise.next_dice, cfg.env)
-        count, overflow = moves.count, _overflow(moves)
-    elif not cfg.movegen.split_planes:
-        moves = legal_moves(state.board, state.player, state.dice, cfg.movegen)
-        action, v_obs, tier_ov = select_action(
-            params, state, moves, noise.gumbel_t1, noise.gumbel_t2, temperature, cfg
-        )
-        with scope("env_step"):
-            res = vec_env.step(state, moves, action, noise.next_dice, cfg.env)
-        count, overflow = moves.count, tier_ov | _overflow(moves)
-    else:
+        with stage("movegen"):
+            ti = xt.legal_moves_tiered(state.board, state.player, state.dice, cfg.movegen)
+        with stage("act"):
+            chosen, v_obs = xt.chosen_tiered(
+                params, state, ti, noise.gumbel_t1, noise.gumbel_t2, temperature, cfg
+            )
+        with stage("env"):
+            res = vec_env.step_chosen(state, ti.count, chosen, noise.next_dice, cfg.env)
+            count, overflow = ti.count, ti.overflow
+            return _transition(state, res, v_obs, count, overflow, noise, cfg, continuous)
+    if cfg.twoply.enabled:
+        with stage("movegen"):
+            moves = legal_moves(state.board, state.player, state.dice, cfg.movegen)
+        with stage("twoply"):
+            action, v_obs = select_action_2ply(
+                params, state, moves, noise.gumbel_2ply, noise.gumbel_1ply,
+                temperature, cfg,
+            )
+        with stage("env"):
+            with scope("env_step"):
+                res = vec_env.step(state, moves, action, noise.next_dice, cfg.env)
+            count, overflow = moves.count, _overflow(moves)
+            return _transition(state, res, v_obs, count, overflow, noise, cfg, continuous)
+    if not cfg.movegen.split_planes:
+        with stage("movegen"):
+            moves = legal_moves(state.board, state.player, state.dice, cfg.movegen)
+        with stage("act"):
+            action, v_obs, tier_ov = select_action(
+                params, state, moves, noise.gumbel_t1, noise.gumbel_t2, temperature, cfg
+            )
+        with stage("env"):
+            with scope("env_step"):
+                res = vec_env.step(state, moves, action, noise.next_dice, cfg.env)
+            count, overflow = moves.count, tier_ov | _overflow(moves)
+            return _transition(state, res, v_obs, count, overflow, noise, cfg, continuous)
+    with stage("movegen"):
         sm = legal_moves_split(state.board, state.player, state.dice, cfg.movegen)
+    with stage("act"):
         cand_flag, sgn = orient(state.player, cfg.train.td_mode)
         v_obs = value_net.forward(
             params, encode_board(state.board, state.player), cfg.model
@@ -425,10 +447,17 @@ def rollout_step(
             params, sm, cand_flag, sgn, noise.gumbel_t1, noise.gumbel_t2,
             temperature, cfg,
         )
+    with stage("env"):
         with scope("env_step"):
             res = vec_env.step_chosen(state, sm.count, chosen, noise.next_dice, cfg.env)
         count, overflow = sm.count, tier_ov | sm.overflow
+        return _transition(state, res, v_obs, count, overflow, noise, cfg, continuous)
 
+
+def _transition(state, res, v_obs, count, overflow, noise, cfg: Config, continuous: bool
+                ) -> Tuple[vec_env.EnvState, Transition]:
+    """The step's ``Transition`` and next state (reset where a game ended
+    in continuous mode) from the env step's result ``res``."""
     trunc = ~res.state.game_over & (res.state.step_count >= cfg.env.max_timesteps)
     t = Transition(
         packed_board=B.pack_board(state.board),
@@ -484,11 +513,13 @@ Noise = Union[StepNoise, TwoPlyNoise]
 def run_steps(params, state, temperature, cfg: Config, continuous: bool,
               noises: Sequence[Noise], dev: torch.device):
     """``len(noises)`` eager steps, one for each noise; returns the final
-    state and their [len(noises), B] transition stack."""
+    state and their [len(noises), B] transition stack. The tracer stamps the
+    stages of the first (``profiling.step_stamps``)."""
     ts = []
-    for nz in noises:
-        state, t = rollout_step(params, state, temperature, cfg, continuous, noise=nz,
-                                device=dev)
+    for i, nz in enumerate(noises):
+        with profiling.step_stamps(dev, i == 0):
+            state, t = rollout_step(params, state, temperature, cfg, continuous, noise=nz,
+                                    device=dev)
         ts.append(t)
     return state, Transition(*(torch.stack(xs) for xs in zip(*ts)))
 
@@ -527,10 +558,13 @@ class ChunkGraph:
             body, dev, f"{chunk} rollout steps")
         self.info = dict(chunk=chunk, batch=state.player.shape[0], **info)
 
-    def replay(self, noises: Sequence[Noise], state=None, temperature=None) -> None:
+    def replay(self, noises: Sequence[Noise], state=None, temperature=None,
+               launch: bool = False) -> None:
         """One chunk on the current stream, from ``state`` and at
         ``temperature`` (None: those the buffers hold, the last replay's
-        final state); counts the launches it ran."""
+        final state); counts the launches it ran. ``launch``: the update's
+        first launch, after a ``launch`` stamp of the tracer. The launch
+        call is the tracer's ``replay`` span."""
         if state is not None:
             copy_into(self.state, state)
         if isinstance(temperature, torch.Tensor):
@@ -539,15 +573,19 @@ class ChunkGraph:
             self.temp.fill_(float(temperature))
         for buf, nz in zip(self.noise, noises):
             copy_into(buf, nz)
-        self.graph.replay()
+        if launch:
+            profiling.launch_stamp(self.temp.device)
+        with scope("replay", span=True):
+            self.graph.replay()
         self.launches.replayed()
 
 
 def _graph_key(params, state, cfg: Config, chunk: int, continuous: bool) -> tuple:
     """A chunk graph is kept for (cfg, chunk, continuous, device, params
-    storage, state shapes)."""
+    storage, state shapes, whether the tracer stamps it)."""
     return ("rollout", cfg, chunk, continuous, str(state.board.data.device),
-            params_signature(params), tuple((tuple(t.shape), t.dtype) for t in leaves(state)))
+            params_signature(params), tuple((tuple(t.shape), t.dtype) for t in leaves(state)),
+            profiling.tracing())
 
 
 def _on(noise: Noise, dev: torch.device) -> Noise:
@@ -607,26 +645,32 @@ def rollout_chunked(
             dst[c * chunk:(c + 1) * chunk].copy_(src)
 
     n_chunks = num_steps // chunk
-    if dev.type != "cuda":
-        for c in range(n_chunks):
-            state, traj = run_steps(params, state, temperature, cfg, continuous,
-                                     chunk_noise(c), dev)
-            keep(c, traj)
-        return state, Transition(*out)
+    profiling.new_update()
+    with scope("rollout", span=True, steps=num_steps, chunk=chunk):
+        if dev.type != "cuda":
+            for c in range(n_chunks):
+                nz = chunk_noise(c)
+                if c == 0:
+                    profiling.launch_stamp(dev)
+                state, traj = run_steps(params, state, temperature, cfg, continuous, nz, dev)
+                keep(c, traj)
+            profiling.read_landed()
+            return state, Transition(*out)
 
-    g, first = cached_graph(_graph_key(params, state, cfg, chunk, continuous),
-                            lambda: ChunkGraph(params, state, temperature, cfg, chunk,
-                                               continuous, dev, chunk_noise(0)))
-    if first:
-        keep(0, g.warmup)
-        g.warmup = None
-    for c in range(int(first), n_chunks):
-        if c == 0:
-            g.replay(chunk_noise(c), state, temperature)
-        else:
-            g.replay(chunk_noise(c))
-        keep(c, g.traj)
-    return tmap(torch.clone, g.state), Transition(*out)
+        g, first = cached_graph(_graph_key(params, state, cfg, chunk, continuous),
+                                lambda: ChunkGraph(params, state, temperature, cfg, chunk,
+                                                   continuous, dev, chunk_noise(0)))
+        if first:
+            keep(0, g.warmup)
+            g.warmup = None
+        for c in range(int(first), n_chunks):
+            if c == 0:
+                g.replay(chunk_noise(c), state, temperature, launch=True)
+            else:
+                g.replay(chunk_noise(c), launch=c == int(first))
+            keep(c, g.traj)
+        profiling.read_landed()  # the card is busy with the launches just queued
+        return tmap(torch.clone, g.state), Transition(*out)
 
 
 def rollout(

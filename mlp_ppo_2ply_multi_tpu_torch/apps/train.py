@@ -34,6 +34,11 @@ pipeline (``experimental.tiered``, a rejected experiment kept default-off):
 nd_tier 96 and dd_tier (48, 96, 96) unless set, and the fused actor kernel
 with a tier of 96, even without --production; --two-ply turns it off.
 
+The tracer (``utils.profiling``; on unless MLP_PPO_TORCH_TRACE=0) times
+the stages of the graphed step on the device: every --log-every update
+writes its ``trace/*`` scalars with the metrics, and --trace-out PATH
+writes a Chrome trace of its spans and stage intervals at exit.
+
 Exit status 2, with the reason: --model above 1 with the fused actor kernel (--production: the kernel
 scores the full hidden layer, ROADMAP §C); a world size other than
 --data x --model; --remote-dir where fsspec does not import.
@@ -69,6 +74,7 @@ from mlp_ppo_2ply_multi_tpu_torch.io import remote
 from mlp_ppo_2ply_multi_tpu_torch.io.metrics import MetricsWriter, Throughput
 from mlp_ppo_2ply_multi_tpu_torch.learner import td
 from mlp_ppo_2ply_multi_tpu_torch.parallel import distributed, sharding
+from mlp_ppo_2ply_multi_tpu_torch.utils import profiling
 from mlp_ppo_2ply_multi_tpu_torch.utils.profiling import device_memory_stats
 
 _STOP = False
@@ -134,8 +140,10 @@ def _record(u, state, gen, metrics, temp, env_steps, cfg, args, writer, tput, la
     a checkpoint; returns the episode count of the last checkpoint.
 
     ``env_steps`` None: the mesh step's metrics, which carry JAX's
-    ``episodes_done`` and ``env_steps`` keys (and no temperature). Only a
-    rank with a ``writer`` writes; ``full_state(state)`` (every rank calls
+    ``episodes_done`` and ``env_steps`` keys (and no temperature). A logged
+    update also writes the tracer's newest update record as ``trace/*``
+    scalars (``profiling.trace_summary``). Only a rank with a ``writer``
+    writes; ``full_state(state)`` (every rank calls
     it, a collective under tp) gives what histograms and checkpoints hold."""
     metrics["episode_count"] = state.episode_count
     if temp is not None:
@@ -157,7 +165,8 @@ def _record(u, state, gen, metrics, temp, env_steps, cfg, args, writer, tput, la
     if writer is None:
         return last_saved
     mem = device_memory_stats(dev) if memory and logged else {}
-    writer.scalars(ec, {**vals, **tput.rates(), **mem})
+    trace = profiling.trace_summary() if logged else {}
+    writer.scalars(ec, {**vals, **tput.rates(), **mem, **trace})
     if hist:
         writer.param_histograms(ec, full.params)
     if save:
@@ -333,6 +342,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="override episode step cap (default 300, Q9)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where to train; cuda without a card is an error")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="at exit, write the tracer's host spans and device stage "
+                         "intervals as one Chrome-trace JSON (MLP_PPO_TORCH_TRACE=0: "
+                         "no tracer, an empty trace)")
     return ap
 
 
@@ -383,6 +396,9 @@ def main(argv=None) -> int:
         state, gen = train(cfg, args, writer, dev)
         if coordinator:
             ckpt.save(cfg.train.checkpoint_dir, state, gen)
+        if args.trace_out and coordinator:
+            profiling.trace_flush()
+            profiling.write_chrome_trace(args.trace_out)
     finally:
         if writer is not None:
             writer.close()

@@ -7,12 +7,13 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Sequence, Tuple
 
 import torch
 
 from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import GraphLaunches
 from mlp_ppo_2ply_multi_tpu_torch.ops.fused_value import packing_once_per_capture
+from mlp_ppo_2ply_multi_tpu_torch.utils import profiling
 
 
 @contextlib.contextmanager
@@ -37,6 +38,19 @@ def capture_stream(dev: torch.device) -> torch.cuda.Stream:
     return _STREAMS[str(dev)]
 
 
+class StampedGraph(torch.cuda.CUDAGraph):
+    """A CUDA graph whose every replay counts the tracer's stamp rows
+    captured in it (``profiling.replayed``): a replay moves the stamp ring's
+    cursor on the device, whoever calls it, and the host's count of rows
+    has to follow it (a timing loop's bare ``graph.replay()`` included)."""
+
+    stamps: Sequence = ()  # the rows ``profiling.capturing`` collected in the capture
+
+    def replay(self) -> None:
+        super().replay()
+        profiling.replayed(self.stamps)
+
+
 def capture_graph(body: Callable[[], None], dev: torch.device, what: str
                   ) -> Tuple[torch.cuda.CUDAGraph, GraphLaunches, Dict[str, object]]:
     """``body`` captured as one CUDA graph on the device's capture stream,
@@ -45,33 +59,39 @@ def capture_graph(body: Callable[[], None], dev: torch.device, what: str
     work on that stream first. Returns (graph, the kernel launches it holds,
     info: the capture + instantiate seconds, the bytes its memory pool
     holds and the launches a replay makes by kernel). A failed capture
-    raises, naming ``what``."""
-    stream = capture_stream(dev)
-    torch.cuda.synchronize(dev)
-    torch.cuda.empty_cache()
-    mem0 = torch.cuda.memory_stats(dev)
-    t0 = time.perf_counter()
-    graph = torch.cuda.CUDAGraph()
-    launches = GraphLaunches()
-    try:
-        with launches, packing_once_per_capture(), torch.cuda.graph(graph, stream=stream):
-            with syncs_raise():
-                body()
-    except RuntimeError as e:
-        if isinstance(e, NotImplementedError):
-            raise
-        raise RuntimeError(f"capturing {what} as a CUDA graph failed: {e}") from e
-    torch.cuda.synchronize(dev)
-    seconds = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    mem1 = torch.cuda.memory_stats(dev)
-    delta = lambda k: mem1.get(k, 0) - mem0.get(k, 0)
-    return graph, launches, dict(
-        capture_s=seconds,
-        pool_reserved_bytes=delta("reserved_bytes.all.current"),
-        pool_allocated_bytes=delta("allocated_bytes.all.current"),
-        launches_per_replay={k.src.stem: n for k, n in launches.per_replay.items()},
-    )
+    raises, naming ``what``. The tracer keeps it as a ``capture`` span with
+    the seconds and the pool's reserved bytes, and the graph counts the
+    tracer's stamp rows it holds at each replay (``StampedGraph``)."""
+    with profiling.scope("capture", span=True, what=what) as attrs:
+        stream = capture_stream(dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_stats(dev)
+        t0 = time.perf_counter()
+        graph = StampedGraph()
+        launches = GraphLaunches()
+        try:
+            with launches, profiling.capturing() as graph.stamps, packing_once_per_capture(), \
+                    torch.cuda.graph(graph, stream=stream):
+                with syncs_raise():
+                    body()
+        except RuntimeError as e:
+            if isinstance(e, NotImplementedError):
+                raise
+            raise RuntimeError(f"capturing {what} as a CUDA graph failed: {e}") from e
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        mem1 = torch.cuda.memory_stats(dev)
+        delta = lambda k: mem1.get(k, 0) - mem0.get(k, 0)
+        info = dict(
+            capture_s=seconds,
+            pool_reserved_bytes=delta("reserved_bytes.all.current"),
+            pool_allocated_bytes=delta("allocated_bytes.all.current"),
+            launches_per_replay={k.src.stem: n for k, n in launches.per_replay.items()},
+        )
+        attrs.update(capture_s=info["capture_s"], pool_reserved_bytes=info["pool_reserved_bytes"])
+    return graph, launches, info
 
 
 def params_signature(params) -> tuple:

@@ -38,6 +38,7 @@ from mlp_ppo_2ply_multi_tpu_torch.encoder.features import encode_board
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import unpack_board
 from mlp_ppo_2ply_multi_tpu_torch.model import value_net
 from mlp_ppo_2ply_multi_tpu_torch.model.value_net import Params
+from mlp_ppo_2ply_multi_tpu_torch.utils import profiling
 
 # optax.adam's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -291,10 +292,18 @@ def update(
     """One training batch over a [T, B] trajectory stack (each column one
     episode in sync mode). ``state`` and ``traj`` must lie on ``device``
     (default ``cuda``). ``state.params`` change in place; returns (new
-    state, metrics as 0-d device tensors)."""
+    state, metrics as 0-d device tensors). The work is the tracer's
+    ``learner`` span, stamped on the device at its begin and end; the
+    update's record closes after it (``profiling.learner``)."""
     dev = resolve_device(device)
     check_on(state.params["w1"], dev, "state")
     check_on(traj.reward, dev, "trajectory")
+    with profiling.learner(dev):
+        return _update(state, traj, cfg)
+
+
+def _update(state: TrainState, traj: Transition, cfg: Config
+            ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     obs = encode_traj(traj, cfg)  # [T, B, 198]
     plan = _plan(
         traj.reward, traj.recorded, traj.boundary, cfg.train.gamma, cfg.train.td_mode,

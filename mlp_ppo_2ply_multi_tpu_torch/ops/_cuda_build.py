@@ -20,6 +20,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from mlp_ppo_2ply_multi_tpu_torch.utils.profiling import scope
+
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -130,9 +132,15 @@ class CudaKernel:
             self.launches += 1
 
     def load(self) -> ctypes.CDLL:
+        """The library, built (or found built) and bound at the first call:
+        a ``build`` span, with the build's seconds and whether it was
+        cached."""
         if self.lib is None:
-            so, self.build_info = build(self.src)
-            lib = ctypes.CDLL(str(so))
-            self._bind(lib)
-            self.lib = lib
+            with scope("build", span=True, kernel=self.src.stem) as attrs:
+                so, self.build_info = build(self.src)
+                lib = ctypes.CDLL(str(so))
+                self._bind(lib)
+                self.lib = lib
+                attrs.update(cached=self.build_info["cached"],
+                             seconds=self.build_info.get("seconds", 0.0))
         return self.lib

@@ -330,11 +330,13 @@ def test_sync_resume_repeats_an_uninterrupted_run(tmp_path):
     assert sa == sb == 8 and int(b.version) == 2 and int(b.opt_state.count) == 8
     for x, y in zip(_flat(a), _flat(b)):
         assert torch.equal(x, y)
-    clock = ("t", "eps_per_sec", "env_steps_per_sec")
+    # clock readings: the host's rates and the tracer's stage times
+    clock = lambda k: k in ("t", "eps_per_sec", "env_steps_per_sec") or (
+        k.startswith("trace/") and k.endswith("_ms"))
     line_a = _records(straight)[0][1]
     (line_b,) = _records(split, "run2")[0]
-    assert {k: v for k, v in line_a.items() if k not in clock} == {
-        k: v for k, v in line_b.items() if k not in clock}
+    assert {k: v for k, v in line_a.items() if not clock(k)} == {
+        k: v for k, v in line_b.items() if not clock(k)}
 
 
 def test_sigterm_leaves_a_final_checkpoint(tmp_path, monkeypatch):

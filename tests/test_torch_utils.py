@@ -73,25 +73,6 @@ def test_ring_buffer_push_keeps_its_tensors():
     assert (ts.store["a"].data_ptr(), ts.cursor.data_ptr(), ts.filled.data_ptr()) == ptrs
 
 
-def test_profile_and_timed_accumulate():
-    profiling.profiling_data.clear()
-
-    @profiling.profile
-    def f(x):
-        return {"y": x * 2, "z": [x + 1]}
-
-    for _ in range(3):
-        f(torch.ones(8))
-    d = profiling.profiling_data["test_profile_and_timed_accumulate.<locals>.f"]
-    assert d["calls"] == 3 and d["total_s"] > 0
-    assert f.__name__ == "f"
-    for _ in range(2):
-        with profiling.timed("block", sync_on=torch.ones(2)):
-            torch.ones(4).sum()
-    assert profiling.profiling_data["block"]["calls"] == 2
-    profiling.print_profiling_data()
-
-
 def test_device_memory_stats_and_op_times_never_raise_on_the_cpu():
     """Like JAX's ``device_memory_stats`` on the CPU: {} (no card), and the
     op view keeps device events only, so a CPU run has none."""
