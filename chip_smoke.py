@@ -59,7 +59,8 @@ Phases, in order; any failure exits non-zero:
    the main path's two shapes, on random in-domain boards and on the real
    candidate boards of a production step;
 4. main path (1-ply): warm-up, then timed production steps with the launch
-   count read around them (two launches per step);
+   counts read around them (two fused_value and one dd_expand launch per
+   step);
 5. same step, kernel vs plain: one step from the same state and noise;
    decisions agree on >= 99.9% of rows and the integer state is identical
    on agreeing rows;
@@ -71,8 +72,9 @@ Phases, in order; any failure exits non-zero:
 9. kernels vs plain (2-ply): the inputs of one 2-ply step's 15 nd_tail and
    22 fused_value calls, each kernel against its plain version (nd_tail
    bit-equal: keep, n_pre, pct, kpair everywhere, after at kept slots);
-10. main path (2-ply): warm-up, then timed steps; exactly 15 nd_tail and 22
-    fused_value launches a step, checkers conserved, values finite;
+10. main path (2-ply): warm-up, then timed steps; exactly 15 nd_tail, 22
+    fused_value and 7 dd_expand launches a step, checkers conserved, values
+    finite;
 11. kernel vs no kernel (2-ply): one state, one noise, through the nd_tail
     kernel and through its plain version swapped in: identical decisions
     and state on every row;
@@ -92,17 +94,18 @@ Phases, in order; any failure exits non-zero:
 16. train, 1-ply: ``apps.train.main`` with --production --mode continuous
     --td-mode side0 --batch-games 4096 --steps-per-update 64 --updates 4
     --checkpoint-every 1: 4 metrics lines with finite loss, exactly
-    2 x 256 fused_value launches, the last checkpoint restored bitwise on
+    2 x 256 fused_value and 256 dd_expand launches, the last checkpoint restored bitwise on
     the card (params, Adam, version 4, generator state), and fused_value
     against its plain version on the trained params (the packed-params
     cache followed the in-place updates); ms an update, env-steps/s while
     training, the learner's share, peak memory;
 17. train, 2-ply: --two-ply --production, B = 1024, 8 steps an update, 2
-    updates: exactly 15 nd_tail and 22 fused_value launches a step, finite
-    loss;
+    updates: exactly 15 nd_tail, 22 fused_value and 7 dd_expand launches a
+    step, finite loss;
 18. train, sync: --mode sync --production --per-episode-updates, B = 256,
     1 update (one 300-step rollout, then 256 sequential Adam steps): one
-    metrics line of finite values at episode count 256;
+    metrics line of finite values at episode count 256, 2 fused_value and 1
+    dd_expand launches a step;
 19. no sync: one eager 1-ply (B = 4096) and one 2-ply (B = 1024) step with
     the noise drawn ahead under ``torch.cuda.set_sync_debug_mode("error")``:
     no op of the step synchronises the host with the card;
@@ -110,10 +113,11 @@ Phases, in order; any failure exits non-zero:
     CUDA graph of 4 steps, captured once, replayed) against ``rollout_loop``
     from the same state and generator seed: every integer and bool field of
     the trajectory and the final state bit-equal, max |dv| printed; again
-    after one ``td.update`` of the same params tensors; 2 fused_value
-    launches a step, counted by replay;
+    after one ``td.update`` of the same params tensors; 2 fused_value and 1
+    dd_expand launches a step, counted by replay;
 21. graphed vs eager, 2-ply: 8 steps at chunk 4, both kernels inside the
-    graph, bit-equal; 22 fused_value and 15 nd_tail launches a step;
+    graph, bit-equal; 22 fused_value, 15 nd_tail and 7 dd_expand launches
+    a step;
 22. graphed times: ms a step and env-steps/s of replays at chunk 1, 4 and
     16 (1-ply) and 1 and 4 (2-ply), each with its capture + instantiate
     seconds, its memory pool's bytes, the device's busy ms a step and idle
@@ -159,7 +163,8 @@ Phases, in order; any failure exits non-zero:
 29. the mesh train step: (a) ``apps.train.main`` with --production
     --fused-rollout --data 1 --model 1 (B = 4096, 3 updates of 64 steps) on
     a one-rank NCCL group: 3 finite metrics lines with JAX's mesh keys,
-    exactly 2 x 64 fused_value launches an update, the first update equal
+    exactly 2 x 64 fused_value and 64 dd_expand launches an update, the
+    first update equal
     to the single-card loop's from the same state, games and generator
     (integer trajectory bit-equal, params at phase 15's tolerances), its ms
     an update beside phase 16's, the update's ms and its all-reduces' (each
@@ -231,8 +236,15 @@ Phases, in order; any failure exits non-zero:
 42. ``scripts.bench_r2_sweep`` over prod, prod_gram, tiered and
     twoply_tuned (exit 0, a line each), tier0 refused (exit 1, named), and
     ``scripts.bench_spmd`` at n = 1 on a one-rank NCCL group;
+43. the doubles kernel (``ops.dd_expand``) on the inputs of one 1-ply step
+    (B = 4096: one call on the 1,024-game doubles sub-batch) and one 2-ply
+    step (B = 1024: its own 256 games, six reply dice on 4,096 positions):
+    each call byte-equal to the plain chain, timed with CUDA events beside
+    its bound and the plain chain, a step's launches queued behind a spin;
 
-then the kernels line (launches summed over every path's timed run) and the
+then the kernels line (launches summed over every path's timed run; the
+doubles kernel's over the main paths' runs of phases 4, 10, 16-18 and
+20-22 and 29a, each gated) and the
 result line. Phases 4, 7, 10 and 13 time the eager step; the training runs
 (16-18) go through the graphed rollouts, as ``apps.train`` does.
 
@@ -280,6 +292,11 @@ TAKE_REPLACES = ("scripts/probe_pallas_batched_dot.py:55 (P1 take_pallas), "
                  "scripts/probe_pallas_batched_dot.py:86 (P2 take_pallas_fused), "
                  "scripts/probe_pallas_batched_dot.py:214 (P3 take_bdiag)")
 STAMP_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/ops/csrc/stamp.cu"
+DD_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/ops/csrc/dd_expand.cu"
+# the doubles kernel's widths (w1, w2, w3, w4, a_max): fast(), Config(), the
+# tuned 2-ply replies of dies 1-3 and 4-6
+DD_WIDTHS = ((16, 96, 224, 448, 448), (16, 128, 288, 512, 512), (16, 64, 96, 64, 64),
+             (16, 64, 128, 128, 128))
 # phase 2's stamp script, (column, close) in launch order: columns 0-3,
 # close 0 and each row kind 1-3, 8 closed rows in 3 slots (two wraps)
 STAMP_SLOTS = 3
@@ -304,6 +321,8 @@ WARMUP_2PLY = 2
 STEPS_2PLY = 8
 ND_LAUNCHES_PER_STEP = 15  # the non-double reply rolls
 FV_LAUNCHES_PER_STEP_2PLY = 22  # candidates + 15 + 6 reply rolls
+DD_LAUNCHES_PER_STEP_1PLY = 1  # the doubles sub-batch
+DD_LAUNCHES_PER_STEP_2PLY = 7  # the step's own moves + 6 reply dice
 LEARN_STEPS = 64  # the learner's trajectory: --steps-per-update 64 at B_PROD
 # the CPU tests' learner tolerances (tests/test_torch_learner.py)
 LEARN_RTOL, PARAM_ATOL, MOMENT_RTOL, MOMENT_FLOOR = 1e-5, 1e-6, 1e-4, 1e-6
@@ -373,8 +392,10 @@ def _port():
     from mlp_ppo_2ply_multi_tpu_torch.scripts import bench, bench_r2_sweep, bench_spmd
     from mlp_ppo_2ply_multi_tpu_torch.scripts import bench_twoply, roofline, trace_attr
     from mlp_ppo_2ply_multi_tpu_torch.utils import cost
+    from mlp_ppo_2ply_multi_tpu_torch.ops import dd_expand
 
     return dict(
+        dd=dd_expand,
         bench=bench, bench_twoply=bench_twoply, sweep=bench_r2_sweep, spmd=bench_spmd,
         roofline=roofline, trace_attr=trace_attr, cost=cost,
         sampling=sampling, stress=stress_movegen2, guard=twoply_decision_guard,
@@ -510,7 +531,7 @@ def sass_mma_count(so, kernel):
 def phase_build(P):
     """One nvcc per kernel source, all started together."""
     fv, nd = P["fv"], P["nd"]
-    kernels = (fv.KERNEL, nd.KERNEL, P["take"].KERNEL, P["stamp"].KERNEL)
+    kernels = (fv.KERNEL, nd.KERNEL, P["take"].KERNEL, P["stamp"].KERNEL, P["dd"].KERNEL)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.load(), kernels))
@@ -524,7 +545,9 @@ def phase_build(P):
                 log(f"[2 build] ptxas: {line.strip()}")
     log(f"[2 build] dynamic shared memory: fused_value {fv.KERNEL.lib.fused_value_smem()} B "
         f"a CTA; nd_tail {nd.KERNEL.lib.nd_tail_smem(96)} B a CTA at K = 96, "
-        f"{nd.KERNEL.lib.nd_tail_smem(nd.MAX_K)} B at K = {nd.MAX_K}")
+        f"{nd.KERNEL.lib.nd_tail_smem(nd.MAX_K)} B at K = {nd.MAX_K}; dd_expand "
+        + ", ".join(f"{w}: {P['dd'].KERNEL.lib.dd_expand_game_bytes(*w)} B a game"
+                    for w in DD_WIDTHS))
     mma = sass_mma_count(fv.KERNEL.build_info["path"], "fused_value_kernel")
     log(f"[2 build] tensor-core instructions (HMMA/HGMMA) in fused_value_kernel's SASS: "
         f"{'not measured (no cuobjdump)' if mma is None else mma}")
@@ -647,7 +670,7 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
     torch.cuda.reset_peak_memory_stats(dev)
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
-    fv.KERNEL.launches = 0
+    fv.KERNEL.launches = P["dd"].KERNEL.launches = 0
     P["stamp"].KERNEL.launches = 0  # the kernels line counts the stamps from here on
     t0 = time.perf_counter()
     ev0.record()
@@ -658,7 +681,7 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
     ev1.record()
     _sync(dev)
     wall = time.perf_counter() - t0
-    launches = fv.KERNEL.launches
+    launches, dd_launches = fv.KERNEL.launches, P["dd"].KERNEL.launches
     dev_ms = ev0.elapsed_time(ev1)
     traj = R.Transition(*(torch.stack(xs) for xs in zip(*ts)))
     b = state.player.shape[0]
@@ -671,6 +694,7 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
         "wall_env_steps_per_s": b * STEPS / wall,
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "fused_value_launches": launches,
+        "dd_expand_launches": dd_launches,
         "games_finished": int(traj.done.sum()),
         "mean_legal_moves": float(traj.num_moves[traj.recorded].float().mean()),
         "overflow_count": int(traj.overflow.sum()),
@@ -684,6 +708,8 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
     log(f"[4 main path] {json.dumps(stats)}")
     if launches != 2 * STEPS:
         raise AssertionError(f"fused_value launched {launches} times in {STEPS} steps")
+    if dd_launches != DD_LAUNCHES_PER_STEP_1PLY * STEPS:
+        raise AssertionError(f"dd_expand launched {dd_launches} times in {STEPS} steps")
     if not stats["conservation_ok"] or not stats["values_finite"]:
         raise AssertionError("main path produced invalid boards or values")
     return state, stats
@@ -1032,8 +1058,7 @@ def phase_twoply_main(P, params, state, cfg, dev, gen, card):
     torch.cuda.reset_peak_memory_stats(dev)
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
-    fv.KERNEL.launches = 0
-    nd.KERNEL.launches = 0
+    fv.KERNEL.launches = nd.KERNEL.launches = P["dd"].KERNEL.launches = 0
     t0 = time.perf_counter()
     ev0.record()
     ts = []
@@ -1044,6 +1069,7 @@ def phase_twoply_main(P, params, state, cfg, dev, gen, card):
     _sync(dev)
     wall = time.perf_counter() - t0
     fv_launches, nd_launches = fv.KERNEL.launches, nd.KERNEL.launches
+    dd_launches = P["dd"].KERNEL.launches
     dev_ms = ev0.elapsed_time(ev1)
     traj = R.Transition(*(torch.stack(xs) for xs in zip(*ts)))
     b = state.player.shape[0]
@@ -1056,6 +1082,7 @@ def phase_twoply_main(P, params, state, cfg, dev, gen, card):
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "fused_value_launches": fv_launches,
         "nd_tail_launches": nd_launches,
+        "dd_expand_launches": dd_launches,
         "games_finished": int(traj.done.sum()),
         "mean_legal_moves": float(traj.num_moves[traj.recorded].float().mean()),
         "overflow_count": int(traj.overflow.sum()),
@@ -1071,6 +1098,8 @@ def phase_twoply_main(P, params, state, cfg, dev, gen, card):
         raise AssertionError(f"nd_tail launched {nd_launches} times in {STEPS_2PLY} steps")
     if fv_launches != FV_LAUNCHES_PER_STEP_2PLY * STEPS_2PLY:
         raise AssertionError(f"fused_value launched {fv_launches} times in {STEPS_2PLY} steps")
+    if dd_launches != DD_LAUNCHES_PER_STEP_2PLY * STEPS_2PLY:
+        raise AssertionError(f"dd_expand launched {dd_launches} times in {STEPS_2PLY} steps")
     if not stats["conservation_ok"] or not stats["values_finite"]:
         raise AssertionError("2-ply path produced invalid boards or values")
     return state, stats
@@ -1323,13 +1352,13 @@ def run_train(P, flags, dev, tag, card):
         with _Swap(td, "update", timed(td.update, learn_ms)), \
                 _Swap(R, rollout_fn, timed(getattr(R, rollout_fn), roll_ms)), \
                 _Swap(P["ckpt"], "save", keep_save):
-            fv.KERNEL.launches = 0
-            nd.KERNEL.launches = 0
+            fv.KERNEL.launches = nd.KERNEL.launches = P["dd"].KERNEL.launches = 0
             t0 = time.perf_counter()
             rc = P["train"].main(argv)
             _sync(dev)
             wall = time.perf_counter() - t0
-            launches = {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches}
+            launches = {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches,
+                        "dd_expand": P["dd"].KERNEL.launches}
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         (run,) = Path(tmp, "runs").iterdir()
         recs = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
@@ -1392,8 +1421,9 @@ def phase_train_1ply(P, dev, gen, card):
     steps = 64 * stats["updates"]
     if stats["updates"] != 4 or not all(math.isfinite(x) for x in stats["loss"]):
         raise AssertionError(f"[16 train 1-ply] metrics lines: {stats['updates']}, {stats['loss']}")
-    if stats["launches"]["fused_value"] != 2 * steps:
-        raise AssertionError(f"[16 train 1-ply] fused_value launched {stats['launches']}")
+    if stats["launches"]["fused_value"] != 2 * steps \
+            or stats["launches"]["dd_expand"] != DD_LAUNCHES_PER_STEP_1PLY * steps:
+        raise AssertionError(f"[16 train 1-ply] launched {stats['launches']} in {steps} steps")
     bitwise = (_states_equal(P, restored, saved["state"]) and int(restored.version) == 4
                and torch.equal(gen_state, saved["gen"]) and step == saved["step"])
     if not bitwise:
@@ -1430,7 +1460,8 @@ def phase_train_2ply(P, dev, card):
                  **update_breakdown(stats, 8))
     log(f"[17 train 2-ply] {json.dumps(stats)}")
     want = {"fused_value": FV_LAUNCHES_PER_STEP_2PLY * steps,
-            "nd_tail": ND_LAUNCHES_PER_STEP * steps}
+            "nd_tail": ND_LAUNCHES_PER_STEP * steps,
+            "dd_expand": DD_LAUNCHES_PER_STEP_2PLY * steps}
     if stats["updates"] != 2 or stats["launches"] != want:
         raise AssertionError(f"[17 train 2-ply] {stats['updates']} updates, launches "
                              f"{stats['launches']}, want {want}")
@@ -1445,8 +1476,9 @@ def phase_train_sync(P, dev, card):
     finite = all(math.isfinite(v) for v in lines[0].values())
     if stats["updates"] != 1 or not finite or stats["episode_count"] != 256:
         raise AssertionError("[18 train sync] bad metrics line")
-    if stats["launches"]["fused_value"] != 2 * 300:
-        raise AssertionError(f"[18 train sync] fused_value launched {stats['launches']}")
+    if stats["launches"]["fused_value"] != 2 * 300 \
+            or stats["launches"]["dd_expand"] != DD_LAUNCHES_PER_STEP_1PLY * 300:
+        raise AssertionError(f"[18 train sync] launched {stats['launches']} in 300 steps")
     return stats
 
 
@@ -1509,13 +1541,13 @@ def eager_and_graphed(P, params, cfg, batch, steps, chunk, seed, dev):
     """``rollout_loop`` and ``rollout_chunked`` from one state and one
     generator seed; the graphed run's launches of each kernel, counted from
     0 just before it and read just after."""
-    R, VE, fv, nd = P["rollout"], P["vec_env"], P["fv"], P["nd"]
+    R, VE, fv, nd, dd = P["rollout"], P["vec_env"], P["fv"], P["nd"], P["dd"]
     temp = cfg.train.initial_temperature
     out = []
     for graphed in (False, True):
         gen = torch.Generator(device=dev).manual_seed(seed)
         state = VE.reset(batch, gen, device=dev)
-        fv.KERNEL.launches = nd.KERNEL.launches = 0
+        fv.KERNEL.launches = nd.KERNEL.launches = dd.KERNEL.launches = 0
         if graphed:
             out.append(R.rollout_chunked(params, state, temp, cfg, steps, chunk=chunk,
                                          gen=gen, device=dev))
@@ -1523,7 +1555,8 @@ def eager_and_graphed(P, params, cfg, batch, steps, chunk, seed, dev):
             out.append(R.rollout_loop(params, state, temp, cfg, steps, True, gen=gen,
                                       device=dev))
         _sync(dev)
-    return out[0], out[1], {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches}
+    return out[0], out[1], {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches,
+                            "dd_expand": dd.KERNEL.launches}
 
 
 def _gate(launches, want, what):
@@ -1543,6 +1576,7 @@ def phase_graph_vs_eager_1ply(P, dev, card):
     eager, graphed, launches = eager_and_graphed(P, params, cfg, B_PROD, steps, chunk, 11, dev)
     dv = compare_rollouts(eager, graphed, "graphed vs eager 1-ply")
     _gate(launches["fused_value"], 2 * steps, "graphed 1-ply fused_value")
+    _gate(launches["dd_expand"], DD_LAUNCHES_PER_STEP_1PLY * steps, "graphed 1-ply dd_expand")
     start = td.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)._replace(
         params=params, opt_state=td.init_adam(params))
     trained, metrics = td.update(start, graphed[1], cfg, dev)
@@ -1551,6 +1585,8 @@ def phase_graph_vs_eager_1ply(P, dev, card):
     eager2, graphed2, launches2 = eager_and_graphed(P, params, cfg, B_PROD, steps, chunk, 12, dev)
     dv2 = compare_rollouts(eager2, graphed2, "graphed vs eager 1-ply after an update")
     _gate(launches2["fused_value"], 2 * steps, "graphed 1-ply fused_value after an update")
+    _gate(launches2["dd_expand"], DD_LAUNCHES_PER_STEP_1PLY * steps,
+          "graphed 1-ply dd_expand after an update")
     # the update moved the values, so a graph still reading the old packed
     # G would have taken other decisions
     boards, flag = eager2[1].packed_board[0], 1 - eager2[1].player[0]
@@ -1558,7 +1594,8 @@ def phase_graph_vs_eager_1ply(P, dev, card):
         boards, flag, P["value_net"].load_checkpoint(str(CKPT), device=dev))
     moved = float((P["fv"].fused_value_plain(boards, flag, params) - before).abs().max())
     stats = dict(batch=B_PROD, steps=steps, chunk=chunk, launches=launches["fused_value"],
-                 launches_after_update=launches2["fused_value"], max_abs_dv=dv,
+                 launches_after_update=launches2["fused_value"],
+                 dd_launches=launches["dd_expand"] + launches2["dd_expand"], max_abs_dv=dv,
                  after_update_max_abs_dv=dv2, loss=float(metrics["loss"]),
                  values_moved_by_update=moved, games_finished=int(graphed[1].done.sum()),
                  card=card)
@@ -1578,7 +1615,8 @@ def phase_graph_vs_eager_2ply(P, dev, card):
     eager, graphed, launches = eager_and_graphed(P, params, cfg, B_TWOPLY, steps, chunk, 13, dev)
     dv = compare_rollouts(eager, graphed, "graphed vs eager 2-ply")
     _gate(launches, {"fused_value": FV_LAUNCHES_PER_STEP_2PLY * steps,
-                     "nd_tail": ND_LAUNCHES_PER_STEP * steps}, "graphed 2-ply")
+                     "nd_tail": ND_LAUNCHES_PER_STEP * steps,
+                     "dd_expand": DD_LAUNCHES_PER_STEP_2PLY * steps}, "graphed 2-ply")
     stats = dict(batch=B_TWOPLY, steps=steps, chunk=chunk, launches=launches, max_abs_dv=dv,
                  card=card)
     log(f"[21 graph vs eager 2-ply] every integer and bool field bit-equal: {json.dumps(stats)}")
@@ -1617,14 +1655,15 @@ def phase_graph_times(P, dev, card):
     it, card synchronised), its launches gated, the device's busy time
     under torch.profiler in a third call, and the graph's replays alone
     queued behind a spin kernel (CUDA events)."""
-    R, VE, fv, nd = P["rollout"], P["vec_env"], P["fv"], P["nd"]
+    R, VE, fv, nd, dd = P["rollout"], P["vec_env"], P["fv"], P["nd"], P["dd"]
     params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
     out = {}
     for name, cfg, batch, steps, chunks, per_step in (
         ("1ply", production_config(P), B_PROD, GRAPH_STEPS_1PLY, (1, 4, 16),
-         {"fused_value": 2, "nd_tail": 0}),
+         {"fused_value": 2, "nd_tail": 0, "dd_expand": DD_LAUNCHES_PER_STEP_1PLY}),
         ("2ply", twoply_config(P), B_TWOPLY, STEPS_2PLY, (1, 4),
-         {"fused_value": FV_LAUNCHES_PER_STEP_2PLY, "nd_tail": ND_LAUNCHES_PER_STEP}),
+         {"fused_value": FV_LAUNCHES_PER_STEP_2PLY, "nd_tail": ND_LAUNCHES_PER_STEP,
+          "dd_expand": DD_LAUNCHES_PER_STEP_2PLY}),
     ):
         temp = cfg.train.initial_temperature
         gen = torch.Generator(device=dev).manual_seed(14)
@@ -1636,13 +1675,14 @@ def phase_graph_times(P, dev, card):
             g = _last_graph(P)
             info = dict(g.info)
             _sync(dev)
-            fv.KERNEL.launches = nd.KERNEL.launches = 0
+            fv.KERNEL.launches = nd.KERNEL.launches = dd.KERNEL.launches = 0
             t0 = time.perf_counter()
             state, traj = R.rollout_chunked(params, state, temp, cfg, steps, chunk=chunk,
                                             gen=gen, device=dev)
             _sync(dev)
             wall_ms = (time.perf_counter() - t0) * 1e3
-            launches = {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches}
+            launches = {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches,
+                        "dd_expand": dd.KERNEL.launches}
             _gate(launches, {k: n * steps for k, n in per_step.items()},
                   f"graphed {name} chunk {chunk}")
             busy, prof_ms = _graph_busy(lambda: R.rollout_chunked(
@@ -2184,8 +2224,9 @@ def phase_mesh_cli(P, dev, card, train1):
     for ln in lines:
         if not MESH_KEYS <= set(ln) or not all(math.isfinite(v) for v in ln.values()):
             raise AssertionError(f"[29 mesh] metrics line {ln}")
-    if stats["launches"]["fused_value"] != 2 * steps:
-        raise AssertionError(f"[29 mesh] fused_value launched {stats['launches']}")
+    if stats["launches"]["fused_value"] != 2 * steps \
+            or stats["launches"]["dd_expand"] != DD_LAUNCHES_PER_STEP_1PLY * steps:
+        raise AssertionError(f"[29 mesh] launched {stats['launches']} in {steps} steps")
     cfg = kept["cfg"]
     gen = torch.Generator(device=dev)
     gen.set_state(kept["gen"])
@@ -2542,7 +2583,9 @@ def phase_tiered(P, dev, gen, card, train1):
     eager, graphed, launches = eager_and_graphed(P, params, cfg, B_PROD, TIERED_GRAPH_STEPS, 4,
                                                  30, dev)
     dv = compare_rollouts(eager, graphed, "[30 tiered] graphed vs eager")
-    _gate(launches, {"fused_value": 2 * TIERED_GRAPH_STEPS, "nd_tail": TIERED_GRAPH_STEPS},
+    # (the tiered doubles' launches are logged, not gated)
+    _gate({k: launches[k] for k in ("fused_value", "nd_tail")},
+          {"fused_value": 2 * TIERED_GRAPH_STEPS, "nd_tail": TIERED_GRAPH_STEPS},
           "[30 tiered] graphed")
     out["graph"] = dict(steps=TIERED_GRAPH_STEPS, chunk=4, launches=launches, max_abs_dv=dv)
     log(f"[30 tiered] rollout_chunked bit-equal to rollout_loop: {json.dumps(out['graph'])} "
@@ -2557,7 +2600,7 @@ def phase_tiered(P, dev, gen, card, train1):
     want = {"fused_value": 2 * steps, "nd_tail": steps}
     if stats["updates"] != 2 or not all(math.isfinite(x) for x in stats["loss"]):
         raise AssertionError(f"[30 tiered train] metrics lines {stats['updates']} {stats['loss']}")
-    _gate(stats["launches"], want, "[30 tiered train]")
+    _gate({k: stats["launches"][k] for k in want}, want, "[30 tiered train]")
     stats.update(**update_breakdown(stats, spu),
                  phase16_ms_per_update=train1["ms_per_update"])
     out["train"] = stats
@@ -3028,10 +3071,14 @@ CEILING = 1.05  # a fraction of a published peak above this means a wrong count
 B_COUNT = 256  # phase 40: the 1-ply step's count, card against CPU
 # phase 41: the JAX scope names each step passes through that a stage tag
 # keeps (tests/test_torch_bench_tools.py holds the full sets to JAX's)
-STAGES_1PLY = {"nd_front", "nd_tail_t1", "nd_tail_t2", "dd_L2", "dd_L3", "dd_L4", "slotv",
-               "sel", "take", "act_t1", "act_t2", "env_step"}
-STAGES_2PLY = ({"nd_front", "nd_tail", "nd_tail_t1", "nd_tail_t2", "dd_L2", "dd_L3", "dd_L4",
-                "slotv", "sel", "take", "mg_merge", "env_step"}
+# (on the card the doubles enumeration is one launch of the doubles kernel in
+# scope dd_L1, where the plain chain passes through dd_L2-dd_L4 with slotv,
+# sel and take inside each; the kernel launches inside its dispatcher op, so
+# the profiler links it to dd_L1)
+STAGES_1PLY = {"nd_front", "nd_tail_t1", "nd_tail_t2", "dd_L1", "act_t1", "act_t2",
+               "env_step"}
+STAGES_2PLY = ({"nd_front", "nd_tail", "nd_tail_t1", "nd_tail_t2", "dd_L1", "mg_merge",
+                "env_step"}
                | {f"dd{d}" for d in range(1, 7)}
                | {f"nd{h}{lo}" for h in range(2, 7) for lo in range(1, h)})
 ATTR_TOP = 15
@@ -3179,6 +3226,96 @@ def phase_trace_attr(P, dev, card):
     return out
 
 
+# phase 43: the doubles kernel on the inputs of the benchmark cells' steps
+DD_STEPS = (("1ply", B_PROD, DD_LAUNCHES_PER_STEP_1PLY),  # (path, batch, calls a step)
+            ("2ply", B_TWOPLY, DD_LAUNCHES_PER_STEP_2PLY))
+DD_WARM_STEPS = 6  # off the opening first
+DD_ITERS = 20
+
+
+def capture_dd_calls(P, params, cfg, batch, dev, gen):
+    """The (board, player, die, movegen config) of every ``enumerate_doubles``
+    call of one eager production step at ``batch``, ``DD_WARM_STEPS`` steps
+    off the opening."""
+    M, R = P["movegen2"], P["rollout"]
+    state = P["vec_env"].reset(batch, gen, device=dev)
+    state, _ = R.rollout_loop(params, state, 1.0, cfg, DD_WARM_STEPS, True, gen=gen, device=dev)
+    seen, real = [], M.enumerate_doubles
+
+    def keep(board, player, die, mcfg, s1=None):
+        n = board.data.shape[0]
+        rows = lambda x: torch.broadcast_to(torch.as_tensor(x, device=dev), (n,)).clone()
+        seen.append((P["board"].Board(board.data.clone()), rows(player), rows(die), mcfg))
+        return real(board, player, die, mcfg, s1)
+
+    M.enumerate_doubles = keep
+    try:
+        R.rollout_step(params, state, 1.0, cfg, True, gen=gen, device=dev)
+    finally:
+        M.enumerate_doubles = real
+    _sync(dev)
+    return seen
+
+
+def phase_dd_expand(P, params, dev, gen, card):
+    """43: the doubles kernel (``ops.dd_expand``) on the inputs of one 1-ply
+    production step (B = 4096: one call, its 1,024-game doubles sub-batch at
+    fast() widths) and one 2-ply step (B = 1024: its own 256 games, then six
+    reply dice on 4,096 positions at the tuned widths): each call's outputs
+    equal the plain chain's byte for byte (the largest difference and the
+    differing elements over the four tensors, both 0); each call timed with
+    CUDA events (plain, kernel, kernel, plain) beside its bound and launch plan; a
+    step's launches queued behind a spin kernel."""
+    M, D = P["movegen2"], P["dd"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for name, batch, calls_per_step in DD_STEPS:
+        cfg = production_config(P) if name == "1ply" else twoply_config(P)
+        calls = capture_dd_calls(P, params, cfg, batch, dev, gen)
+        if len(calls) != calls_per_step:
+            raise AssertionError(f"[43 dd_expand] {name}: {len(calls)} calls a step, "
+                                 f"want {calls_per_step}")
+        per, kernel_calls = [], []
+        for board, player, die, mcfg in calls:
+            kern = functools.partial(M.enumerate_doubles, board, player, die, mcfg)
+            plain = functools.partial(M.enumerate_doubles_plain, board, player, die, mcfg)
+            got, want = kern(), plain()
+            _sync(dev)
+            diff = {}
+            for f in ("boards", "valid", "count", "overflow"):
+                a, b = getattr(got, f), getattr(want, f)
+                a, b = getattr(a, "data", a).int(), getattr(b, "data", b).int()
+                if a.shape != b.shape:
+                    raise AssertionError(f"[43 dd_expand] {name}: {f} {tuple(a.shape)} against "
+                                         f"the plain chain's {tuple(b.shape)}")
+                d = (a - b).abs()
+                diff[f] = (int(d.max()) if d.numel() else 0, int((d != 0).sum()))
+            max_abs = max(m for m, _ in diff.values())
+            differing = sum(c for _, c in diff.values())
+            if differing:
+                raise AssertionError(f"[43 dd_expand] {name}: differs from the plain chain at "
+                                     f"widths {D.widths_of(mcfg)}: {diff}")
+            p1, k1, k2, p2 = (_time_ms(f, dev, DD_ITERS) for f in (plain, kern, kern, plain))
+            n, widths = board.data.shape[0], D.widths_of(mcfg)
+            row = dict(widths=list(widths), plan=D.plan(n, widths, sms),
+                       max_abs_err=max_abs, differing_elements=differing,
+                       moves_per_game=float(got.count.float().mean()),
+                       overflow_games=int(got.overflow.sum()), events_ms=(k1 + k2) / 2,
+                       plain_ms=(p1 + p2) / 2, runs_ms=[p1, k1, k2, p2], **D.bound(n, widths))
+            per.append(row)
+            kernel_calls.append(kern)
+            log(f"[43 dd_expand] {name}: {json.dumps(row)} {card}")
+        step = dict(calls_per_step=len(per), ms=_queued_ms_per_round(kernel_calls, dev),
+                    max_abs_err=max(r["max_abs_err"] for r in per),
+                    events_ms=sum(r["events_ms"] for r in per),
+                    plain_ms=sum(r["plain_ms"] for r in per),
+                    bound_ms=sum(r["bound_ms"] for r in per))
+        step["roofline"] = step["bound_ms"] / step["ms"]
+        log(f"[43 dd_expand] {name} one step: {json.dumps(step)} {card}")
+        out[name] = dict(step, calls=per)
+    return out
+
+
 def phase_sweep_and_spmd(P, dev, card):
     """42: ``scripts.bench_r2_sweep.main`` over prod, prod_gram, tiered and
     twoply_tuned at a reduced step count (exit 0, one JSON line each);
@@ -3293,6 +3430,8 @@ def main() -> int:
     graph_fv = (g1["launches"] + g1["launches_after_update"] + g2["launches"]["fused_value"]
                 + sum(r["launches"]["fused_value"] for r in gt.values()))
     graph_nd = g2["launches"]["nd_tail"] + sum(r["launches"]["nd_tail"] for r in gt.values())
+    graph_dd = (g1["dd_launches"] + g2["launches"]["dd_expand"]
+                + sum(r["launches"]["dd_expand"] for r in gt.values()))
 
     take_rows, take_launches = phase_take(P, dev, card)
     phase_arena_card_vs_cpu(P, dev, card)
@@ -3316,6 +3455,7 @@ def main() -> int:
     roof = phase_roofline(P, dev, card)
     attr = phase_trace_attr(P, dev, card)
     sweep = phase_sweep_and_spmd(P, dev, card)
+    dd = phase_dd_expand(P, params, dev, gen, card)
     # the measurement tools' launches (phases 39-42), each run counted from 0
     # (bench_spmd's rank is a process of its own)
     bench_tools = {k: sum(r["launches"][k] for r in (*bench.values(), roof, *attr.values(),
@@ -3478,6 +3618,31 @@ def main() -> int:
         "library_ms": None,
         "paths": {"check": {k: stamp_check[k] for k in ("launches", "spin_events_ms",
                                                         "spin_stamps_ms")}},
+        "ok": True,
+    })
+    # the main paths' runs, each counted from 0 just before it and gated at
+    # one launch a 1-ply step and seven a 2-ply step
+    dd_paths = {"1ply": stats["dd_expand_launches"], "2ply": stats2["dd_expand_launches"],
+                **{k: t["launches"]["dd_expand"] for k, t in trains.items()},
+                "train_mesh": mesh["launches"]["dd_expand"], "graphs": graph_dd}
+    kernels.append({
+        "name": "dd_expand",
+        "route": "cuda",
+        "source": DD_SOURCE,
+        "replaces": None,  # JAX runs the doubles enumeration as plain XLA: no TPU kernel
+        "launches": sum(dd_paths.values()),
+        # phase 43: the largest difference from the plain chain over every
+        # output tensor of the two steps' calls
+        "max_abs_err": max(v["max_abs_err"] for v in dd.values()),
+        # the 1-ply step's one launch, queued behind a spin
+        "ms": dd["1ply"]["ms"],
+        "plain_ms": dd["1ply"]["plain_ms"],
+        "bound_ms": dd["1ply"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "paths": {k: {"launches": n, **{f: dd[k][f] for f in (
+            "calls_per_step", "ms", "events_ms", "plain_ms", "bound_ms") if k in dd}}
+            for k, n in dd_paths.items()},
         "ok": True,
     })
     log(f"card: {smi}")

@@ -22,7 +22,9 @@ docstring for the algorithms and their reference citations):
 * Doubles: canonical multiset enumeration (submove ranks nondecreasing), so
   no duplicates arise; run on a compacted sub-batch of the doubles games,
   two-tier there when ``dd_tier`` is set
-  (``experimental.tiered.doubles_two_tier``).
+  (``experimental.tiered.doubles_two_tier``). On a card the whole
+  enumeration is one launch of the CUDA kernel ``ops.dd_expand``; the plain
+  chain (``enumerate_doubles_plain``) runs on the CPU.
 
 The JAX version selects the k-th set bit with compare-reduces and one-hot
 matmuls because binary search and row gathers are slow on the TPU. Here a
@@ -33,7 +35,8 @@ slots.
 
 Stages carry the JAX package's ``jax.named_scope`` names
 (``utils.profiling.scope``): nd_front, nd_tail, nd_tail_t1, nd_tail_t2,
-dd_L2-dd_L4 with slotv, sel and take inside each, and mg_merge.
+dd_L2-dd_L4 with slotv, sel and take inside each (the plain doubles chain),
+and mg_merge; on a card the doubles kernel runs in dd_L1.
 """
 from __future__ import annotations
 
@@ -63,6 +66,8 @@ from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import (
     slot_valid,
     slot_valid_stats,
 )
+from mlp_ppo_2ply_multi_tpu_torch.ops import dd_expand
+from mlp_ppo_2ply_multi_tpu_torch.utils import cost, profiling
 from mlp_ppo_2ply_multi_tpu_torch.utils.profiling import scope
 
 
@@ -616,10 +621,39 @@ def enumerate_doubles(
     cfg: MoveGenConfig,
     s1: Optional[SlotTable] = None,
 ) -> MoveSet:
-    """Canonical doubles enumeration — zero sorts, zero dedup. ``s1``
-    supplies a precomputed root slot table for this die (``die_tables``).
-    The three level expansions share one root SlotCtx (the die is constant
-    for the whole turn). Flat [n] batch."""
+    """Canonical doubles enumeration — zero sorts, zero dedup. Flat [n]
+    batch; player and die broadcast to it.
+
+    On a card: one launch of the CUDA kernel (``ops.dd_expand``), in scope
+    ``dd_L1``; it builds its own root table, so ``s1`` is not read. On the
+    CPU: the plain chain, ``enumerate_doubles_plain``. The two give the same
+    bytes in every output tensor, invalid entries included; ``utils.cost``
+    counts either route by the kernel's formula."""
+    widths = dd_expand.widths_of(cfg)
+    n = board.data.shape[0]
+    with cost.kernel("dd_expand_kernel", lambda: {"bytes": dd_expand.bound(n, widths)["bytes"]}):
+        if board.data.is_cuda:
+            with scope("dd_L1"):
+                boards, valid, count, overflow = dd_expand.launch_kernel(
+                    board.data, player, die, widths)
+            return MoveSet(Board(data=boards), valid, count, overflow)
+        return enumerate_doubles_plain(board, player, die, cfg, s1)
+
+
+def enumerate_doubles_plain(
+    board: Board,
+    player: torch.Tensor,
+    die: torch.Tensor,
+    cfg: MoveGenConfig,
+    s1: Optional[SlotTable] = None,
+) -> MoveSet:
+    """``enumerate_doubles`` in plain PyTorch: the CPU path, and on a card
+    the kernel's oracle (each call there counts as the tracer's
+    ``dd_plain``). ``s1`` supplies a precomputed root slot table for this
+    die (``die_tables``). The three level expansions share one root SlotCtx
+    (the die is constant for the whole turn)."""
+    if board.data.is_cuda:
+        profiling.count("dd_plain")
     ctx = slot_ctx(board, player, die)
     if s1 is None:
         s1 = slot_table(board, player, die)

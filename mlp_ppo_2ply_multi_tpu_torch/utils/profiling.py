@@ -26,7 +26,10 @@ bounded, while ``MLP_PPO_TORCH_TRACE`` is not ``0`` (the default records):
   it), so it knows where each landed without reading the cursor; the
   cursor, copied with each update's rows, checks that count;
 * counters: graphs captured and kernels built or loaded (their ``capture``
-  and ``build`` spans), by update.
+  and ``build`` spans), the doubles kernel's launches (``dd_kernel_launches``:
+  ``ops.dd_expand``'s launch count, eager and replayed, read as the update
+  opens and closes) and the plain doubles chain's calls on a card
+  (``dd_plain``), by update.
 
 An update's rows are copied to pinned host memory without a wait when the
 update closes (the learner's end, or the next rollout), and read once that
@@ -244,10 +247,11 @@ def device_stage_times(fn: Callable, *args) -> StageTimes:
     events by the stage that launched them (``attribute_kernels``). Warm
     ``fn`` up first. Attribution follows the profiler's links from a kernel
     to the CPU op that launched it, so it needs an eager call: a CUDA graph
-    replay links every kernel to ``cudaGraphLaunch``. The call runs inside
-    one more scope, so a kernel launched outside any op (the port's ctypes
-    kernels) still has an event to link to. Empty when the result holds no
-    CUDA tensor."""
+    replay links every kernel to ``cudaGraphLaunch``. A kernel launched
+    through ctypes outside any op is linked to no event, scopes around it or
+    not, and counts in ``traced_ms`` alone (the doubles kernel launches
+    inside a dispatcher op of its own, ``ops.dd_expand``, for this). Empty
+    when the result holds no CUDA tensor."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -301,6 +305,10 @@ WIDTH = 5  # int64 columns of a ring row: up to 4 stamps, then its sequence numb
 SETUP_SPANS = {"capture": "captures", "build": "builds"}  # one-time work, and its counter
 STAMP_KERNEL = "stamp_kernel"  # ``ops.stamp``'s kernel, by its name in a profiler trace
 KINDS = {"step": 1, "launch": 2, "learner": 3}  # a row's kind, in its last column
+# counters that ``trace_summary`` reads by update: the doubles kernel's
+# launches (``ops.dd_expand``, read as each update opens and closes) and the
+# plain doubles chain's calls on a card (``count``)
+UPDATE_COUNTERS = ("dd_kernel_launches", "dd_plain")
 
 
 def tracing() -> bool:
@@ -349,6 +357,14 @@ class _Row(NamedTuple):
     seq: int  # the row's number in its ring; -1 while held by a captured graph
 
 
+def _dd_kernel_launches() -> int:
+    """The doubles kernel's launches that ran so far, eager and replayed
+    (``ops.dd_expand.KERNEL.launches``)."""
+    from mlp_ppo_2ply_multi_tpu_torch.ops import dd_expand  # it imports this module
+
+    return dd_expand.KERNEL.launches
+
+
 class _Update:
     """What one update recorded until it closes."""
 
@@ -357,6 +373,7 @@ class _Update:
         self.rows: List[_Row] = []
         self.spans: List[Span] = []
         self.counters: Dict[str, int] = {}
+        self.dd_launches = _dd_kernel_launches()  # at the update's opening
 
 
 class Tracer:
@@ -561,7 +578,10 @@ class Tracer:
 
     def _close(self) -> None:
         upd, self._open = self._open, None
-        if upd is None or not (upd.rows or upd.spans):
+        if upd is None:
+            return
+        upd.counters["dd_kernel_launches"] = _dd_kernel_launches() - upd.dd_launches
+        if not (upd.rows or upd.spans):
             return
         by_ring: Dict[int, List[_Row]] = {}
         for r in upd.rows:
@@ -701,6 +721,13 @@ def new_update() -> None:
     TRACER.new_update()
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the tracer's counter ``name`` (in all and in the open
+    update) while tracing is on."""
+    if tracing():
+        TRACER.count(name, n)
+
+
 def read_landed() -> None:
     """Turn the closed updates whose rows have landed on the host into
     records, now, where the host would otherwise wait on the card (the
@@ -754,8 +781,8 @@ def trace_spans() -> List[Span]:
 def trace_summary() -> Dict[str, float]:
     """The newest readable update as ``trace/*`` scalars: the mean device
     ms of each stage of its stamped steps, the launch wait, the learner's
-    device ms, the replays' host ms, and the graphs captured and kernels
-    built so far."""
+    device ms, the replays' host ms, its ``UPDATE_COUNTERS``, and the
+    graphs captured and kernels built so far."""
     recs = trace_records()
     if not recs:
         return {}
@@ -769,6 +796,8 @@ def trace_summary() -> Dict[str, float]:
     if r["learner_ms"] is not None:
         out["trace/learner_device_ms"] = r["learner_ms"]
     out["trace/replay_host_ms"] = r["replay_ms"]
+    for name in UPDATE_COUNTERS:
+        out[f"trace/{name}"] = float(r["counters"].get(name, 0))
     out["trace/captures"] = float(TRACER.counters.get("captures", 0))
     out["trace/builds"] = float(TRACER.counters.get("builds", 0))
     return out

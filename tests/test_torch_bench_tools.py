@@ -38,7 +38,9 @@ from mlp_ppo_2ply_multi_tpu_torch.core.tree import leaves
 from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
 from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
 from mlp_ppo_2ply_multi_tpu_torch.model import value_net
-from mlp_ppo_2ply_multi_tpu_torch.ops import fused_value, take_rows
+from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
+from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
+from mlp_ppo_2ply_multi_tpu_torch.ops import dd_expand, fused_value, take_rows
 from mlp_ppo_2ply_multi_tpu_torch.scripts import (
     bench,
     bench_r2_sweep,
@@ -285,6 +287,9 @@ def _kernel_calls():
                48, 64)
     tb = torch.randint(-5, 5, (8, 20, 52), generator=g, dtype=torch.int8)
     idx = torch.randint(-2, 22, (8, 12), generator=g)
+    dd_cfg = MoveGenConfig(w1=4, w2=8, w3=12, w4=16, a_max=10)
+    dd_args = (Board(vec_env.reset(6, g, "cpu").board.data), torch.arange(6) % 2,
+               torch.arange(6) % 6 + 1, dd_cfg)
     return {
         "fused_value_kernel": (
             fused_value, "fused_value_plain", lambda: fused_value.fused_value(boards, flag, params),
@@ -296,10 +301,14 @@ def _kernel_calls():
         "take_rows_kernel": (
             take_rows, "take_rows_plain", lambda: take_rows.take_rows(tb, idx),
             {"bytes": take_rows.bound(tb, idx)["bytes"]}),
+        "dd_expand_kernel": (
+            movegen2, "enumerate_doubles_plain", lambda: movegen2.enumerate_doubles(*dd_args),
+            {"bytes": dd_expand.bound(6, dd_expand.widths_of(dd_cfg))["bytes"]}),
     }
 
 
-@pytest.mark.parametrize("kernel", ["fused_value_kernel", "nd_tail_kernel", "take_rows_kernel"])
+@pytest.mark.parametrize("kernel", ["fused_value_kernel", "nd_tail_kernel", "take_rows_kernel",
+                                    "dd_expand_kernel"])
 def test_kernels_counted_once_by_formula_whatever_the_route(kernel, monkeypatch):
     mod, plain_name, call, want = _kernel_calls()[kernel]
     want = {**dict.fromkeys(cost.COUNTS, 0.0), **want, "ops": 1.0}
