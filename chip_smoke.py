@@ -57,10 +57,12 @@ Phases, in order; any failure exits non-zero:
    nanoseconds;
 3. kernel vs plain (1-ply): fused_value against ``fused_value_plain`` at
    the main path's two shapes, on random in-domain boards and on the real
-   candidate boards of a production step;
+   candidate boards of a production step; (3b) nd_tail on that step's two
+   tier calls ([4096, K = 96] and [512, K = 288]) bit-equal to its plain
+   version, ``after`` at every slot;
 4. main path (1-ply): warm-up, then timed production steps with the launch
-   counts read around them (two fused_value and one dd_expand launch per
-   step);
+   counts read around them (two fused_value, two nd_tail and one dd_expand
+   launch per step);
 5. same step, kernel vs plain: one step from the same state and noise;
    decisions agree on >= 99.9% of rows and the integer state is identical
    on agreeing rows;
@@ -68,11 +70,12 @@ Phases, in order; any failure exits non-zero:
    path (which the CPU tests hold against the JAX package) — bit-equal
    legal moves, identical integer state on agreeing rows;
 7. where the time goes: per-stage host times and a torch.profiler window;
-8. kernel timing and bound (1-ply shapes);
-9. kernels vs plain (2-ply): the inputs of one 2-ply step's 15 nd_tail and
-   22 fused_value calls, each kernel against its plain version (nd_tail
-   bit-equal: keep, n_pre, pct, kpair everywhere, after at kept slots);
-10. main path (2-ply): warm-up, then timed steps; exactly 15 nd_tail, 22
+8. kernel timing and bound (1-ply shapes, nd_tail's two tiers included);
+9. kernels vs plain (2-ply): the inputs of one 2-ply step's 17 nd_tail (its
+   own moves' two tiers and 15 reply rolls) and 22 fused_value calls, each
+   kernel against its plain version (nd_tail bit-equal: keep, n_pre, pct,
+   kpair everywhere, after at kept slots);
+10. main path (2-ply): warm-up, then timed steps; exactly 17 nd_tail, 22
     fused_value and 7 dd_expand launches a step, checkers conserved, values
     finite;
 11. kernel vs no kernel (2-ply): one state, one noise, through the nd_tail
@@ -94,18 +97,19 @@ Phases, in order; any failure exits non-zero:
 16. train, 1-ply: ``apps.train.main`` with --production --mode continuous
     --td-mode side0 --batch-games 4096 --steps-per-update 64 --updates 4
     --checkpoint-every 1: 4 metrics lines with finite loss, exactly
-    2 x 256 fused_value and 256 dd_expand launches, the last checkpoint restored bitwise on
+    2 x 256 fused_value, 2 x 256 nd_tail and 256 dd_expand launches, the last
+    checkpoint restored bitwise on
     the card (params, Adam, version 4, generator state), and fused_value
     against its plain version on the trained params (the packed-params
     cache followed the in-place updates); ms an update, env-steps/s while
     training, the learner's share, peak memory;
 17. train, 2-ply: --two-ply --production, B = 1024, 8 steps an update, 2
-    updates: exactly 15 nd_tail, 22 fused_value and 7 dd_expand launches a
+    updates: exactly 17 nd_tail, 22 fused_value and 7 dd_expand launches a
     step, finite loss;
 18. train, sync: --mode sync --production --per-episode-updates, B = 256,
     1 update (one 300-step rollout, then 256 sequential Adam steps): one
-    metrics line of finite values at episode count 256, 2 fused_value and 1
-    dd_expand launches a step;
+    metrics line of finite values at episode count 256, 2 fused_value, 2
+    nd_tail and 1 dd_expand launches a step;
 19. no sync: one eager 1-ply (B = 4096) and one 2-ply (B = 1024) step with
     the noise drawn ahead under ``torch.cuda.set_sync_debug_mode("error")``:
     no op of the step synchronises the host with the card;
@@ -113,10 +117,10 @@ Phases, in order; any failure exits non-zero:
     CUDA graph of 4 steps, captured once, replayed) against ``rollout_loop``
     from the same state and generator seed: every integer and bool field of
     the trajectory and the final state bit-equal, max |dv| printed; again
-    after one ``td.update`` of the same params tensors; 2 fused_value and 1
-    dd_expand launches a step, counted by replay;
+    after one ``td.update`` of the same params tensors; 2 fused_value, 2
+    nd_tail and 1 dd_expand launches a step, counted by replay;
 21. graphed vs eager, 2-ply: 8 steps at chunk 4, both kernels inside the
-    graph, bit-equal; 22 fused_value, 15 nd_tail and 7 dd_expand launches
+    graph, bit-equal; 22 fused_value, 17 nd_tail and 7 dd_expand launches
     a step;
 22. graphed times: ms a step and env-steps/s of replays at chunk 1, 4 and
     16 (1-ply) and 1 and 4 (2-ply), each with its capture + instantiate
@@ -163,7 +167,8 @@ Phases, in order; any failure exits non-zero:
 29. the mesh train step: (a) ``apps.train.main`` with --production
     --fused-rollout --data 1 --model 1 (B = 4096, 3 updates of 64 steps) on
     a one-rank NCCL group: 3 finite metrics lines with JAX's mesh keys,
-    exactly 2 x 64 fused_value and 64 dd_expand launches an update, the
+    exactly 2 x 64 fused_value, 2 x 64 nd_tail and 64 dd_expand launches an
+    update, the
     first update equal
     to the single-card loop's from the same state, games and generator
     (integer trajectory bit-equal, params at phase 15's tolerances), its ms
@@ -190,7 +195,8 @@ Phases, in order; any failure exits non-zero:
     launches gated, ms an update;
 31. the Gram dedup: the production step at B = 4096 with
     ``nd_sig_dedup=False`` and with signatures from one state and noise:
-    identical decisions, planes and integer state; ms a step of each;
+    identical decisions, planes and integer state; ms a step of each (2
+    nd_tail launches a step with signatures, none with the Gram dedup);
 32. the 2-ply scan scorer at ``TwoPlyConfig(enabled=True)``'s widths,
     B = 1024: on one state's candidates, chunk 1 bit-equal to the unrolled
     scorer and chunk 3 within rtol 1e-5, atol 1e-6 (15 + 21 and 5 + 7 nd_tail +
@@ -198,7 +204,7 @@ Phases, in order; any failure exits non-zero:
     inputs against their plain versions (nd_tail bit-equal at [4096 and
     12288 rows, K = 128], fused_value at [1 and 3, 1024, 4, 128] within
     5e-3), one launch of each timed with its bound; ms a 2-ply step of
-    each, launches gated;
+    each, launches gated (the step's own moves add 2 nd_tail launches);
 33. value-first replies (``value_first_m=16``; 21 fused_value launches, no
     nd_tail): where the inexact flag is clear, equal to the
     reference-order scan (rtol 1e-6, atol 1e-7); ms a step;
@@ -208,7 +214,8 @@ Phases, in order; any failure exits non-zero:
 35. the rules stress, 4,096 positions of each config against the rules
     oracle: (a) the merged legal moves (nd_tail at [128, K = 576], one
     launch a batch, bit-equal to its plain version and timed), (b) the
-    production ``legal_moves_split``; 0 mismatches, overflow rows and
+    production ``legal_moves_split`` (2 nd_tail launches a batch, the
+    tiers); 0 mismatches, overflow rows and
     positions/s;
 36. the tuned-vs-exact 2-ply decision guard on 1,024 self-play positions:
     16 nd_tail launches a score call, each call bit-equal to its plain
@@ -225,7 +232,7 @@ Phases, in order; any failure exits non-zero:
     chunk 4 and eager, B = 4096) and the 2-ply bench (tuned and plain,
     B = 1024, a graph of one step): one JSON line each, its keys finite and
     positive, fused_value launched 2 a 1-ply step and 22 a tuned 2-ply step
-    (nd_tail 15); the graphed ms/step beside phase 22's;
+    (nd_tail 2 and 17); the graphed ms/step beside phase 22's;
 40. the roofline (``scripts.roofline all``): the launch floor and the
     measured bf16 and HBM peaks, each at most 1.05 of the published peak;
     both steps' achieved fractions at most 1.05; one 1-ply step's count
@@ -263,6 +270,7 @@ exits 1; then, without CUDA, it exits 2. Neither prints a result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -330,7 +338,10 @@ B_TWOPLY = 1024
 B_TWOPLY_SMALL = 32
 WARMUP_2PLY = 2
 STEPS_2PLY = 8
-ND_LAUNCHES_PER_STEP = 15  # the non-double reply rolls
+ND_TIER_LAUNCHES = 2  # the two tiers of the non-doubles tail at fast() widths
+ND_REPLY_LAUNCHES = 15  # the non-double reply rolls
+ND_LAUNCHES_PER_STEP_1PLY = ND_TIER_LAUNCHES
+ND_LAUNCHES_PER_STEP_2PLY = ND_TIER_LAUNCHES + ND_REPLY_LAUNCHES  # the step's own moves + replies
 FV_LAUNCHES_PER_STEP_2PLY = 22  # candidates + 15 + 6 reply rolls
 DD_LAUNCHES_PER_STEP_1PLY = 1  # the doubles sub-batch
 DD_LAUNCHES_PER_STEP_2PLY = 7  # the step's own moves + 6 reply dice
@@ -582,8 +593,10 @@ def phase_stamp(P, dev, card):
     columns (sequence x 8 + kind) and the untouched cells must be equal, and
     equal to the script's own bookkeeping, and the card's stamps rise in
     launch order. Two stamps around a spin read its CUDA-event time in
-    nanoseconds (within 2% + 20 us). Then one launch's device time, queued
-    behind a spin."""
+    nanoseconds (within 2% + 20 us); the four launches are queued behind a
+    first spin, so that the host's time between them (the card idle between
+    a stamp and an event) falls inside neither reading. Then one launch's
+    device time, queued behind a spin."""
     S, PR = P["stamp"], P["profiling"]
     width = PR.WIDTH
     ring = torch.full((STAMP_SLOTS, width), STAMP_UNTOUCHED, dtype=torch.int64)
@@ -614,6 +627,8 @@ def phase_stamp(P, dev, card):
     one = torch.full((1, width), STAMP_UNTOUCHED, dtype=torch.int64, device=dev)
     one_cur = torch.zeros(1, dtype=torch.int64, device=dev)
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    _sync(dev)
+    torch.cuda._sleep(10**7)  # holds the card while the host queues the four launches
     S.launch_kernel(one, one_cur, 0, 0)
     e0.record()
     torch.cuda._sleep(10**7)  # ~5 ms at the H100's boost clock
@@ -638,20 +653,42 @@ def phase_stamp(P, dev, card):
 
 def capture_candidates(P, params, state, cfg, dev, gen):
     """Run one production step and keep the (boards, flag) of each
-    fused_value call: the real candidate boards of the main path."""
-    R = P["rollout"]
-    real = R.fused_value
-    seen = []
+    fused_value call, the real candidate boards of the main path, and the
+    arguments of each nd_tail_fused call (the two tiers of its non-doubles
+    tail)."""
+    R, nd = P["rollout"], P["nd"]
+    real, nd_real = R.fused_value, nd.nd_tail_fused
+    seen, nd_seen = [], []
 
     def capture(boards, flag, prm, valid=None):
         seen.append((boards.clone(), torch.broadcast_to(flag, boards.shape[:-1]).clone()))
         return real(boards, flag, prm, valid)
 
-    with _ValueFn(P, capture):
+    def nd_capture(*args):
+        nd_seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return nd_real(*args)
+
+    with _ValueFn(P, capture), _Swap(nd, "nd_tail_fused", nd_capture):
         state, _ = R.rollout_step(
             params, state, cfg.train.initial_temperature, cfg, True, gen=gen, device=dev
         )
-    return state, seen
+    return state, seen, nd_seen
+
+
+def phase_tiers_vs_plain(P, nd_seen, dev, card):
+    """3b: B2 on the 1-ply step's two tier calls ([4096, K = 96] and the
+    wide sub-batch [512, K = 288], a_max 448) against its plain version:
+    bit-equal, ``after`` at every slot too."""
+    worst, after_everywhere, kept, rows = nd_tail_vs_plain(P, nd_seen, dev)
+    n_pre = nd_seen[0][0].sum(-1)
+    log(f"[3b tiers vs plain] nd_tail: {[(a[0].shape[0], a[7], a[8]) for a in nd_seen]} "
+        f"(rows, K, a_max), {rows} rows, {kept} kept slots; tier 1 n_pre mean "
+        f"{float(n_pre.float().mean()):.2f}, {int((n_pre > nd_seen[0][7]).sum())} rows wider "
+        f"than tier 1; max |diff| over keep/n_pre/pct/kpair and kept afterstates = {worst}; "
+        f"after equal at every slot: {after_everywhere} {card}")
+    if worst != 0 or not after_everywhere:
+        raise AssertionError("[3b tiers vs plain] nd_tail differs from its plain version")
+    return float(worst)
 
 
 def phase_kernel_vs_plain(P, params, real_inputs, dev, gen, card, random_cases=True,
@@ -690,7 +727,7 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
     torch.cuda.reset_peak_memory_stats(dev)
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
-    fv.KERNEL.launches = P["dd"].KERNEL.launches = 0
+    fv.KERNEL.launches = P["dd"].KERNEL.launches = P["nd"].KERNEL.launches = 0
     P["stamp"].KERNEL.launches = 0  # the kernels line counts the stamps from here on
     t0 = time.perf_counter()
     ev0.record()
@@ -702,6 +739,7 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
     _sync(dev)
     wall = time.perf_counter() - t0
     launches, dd_launches = fv.KERNEL.launches, P["dd"].KERNEL.launches
+    nd_launches = P["nd"].KERNEL.launches
     dev_ms = ev0.elapsed_time(ev1)
     traj = R.Transition(*(torch.stack(xs) for xs in zip(*ts)))
     b = state.player.shape[0]
@@ -714,6 +752,7 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
         "wall_env_steps_per_s": b * STEPS / wall,
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "fused_value_launches": launches,
+        "nd_tail_launches": nd_launches,
         "dd_expand_launches": dd_launches,
         "games_finished": int(traj.done.sum()),
         "mean_legal_moves": float(traj.num_moves[traj.recorded].float().mean()),
@@ -730,6 +769,8 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
         raise AssertionError(f"fused_value launched {launches} times in {STEPS} steps")
     if dd_launches != DD_LAUNCHES_PER_STEP_1PLY * STEPS:
         raise AssertionError(f"dd_expand launched {dd_launches} times in {STEPS} steps")
+    if nd_launches != ND_LAUNCHES_PER_STEP_1PLY * STEPS:
+        raise AssertionError(f"nd_tail launched {nd_launches} times in {STEPS} steps")
     if not stats["conservation_ok"] or not stats["values_finite"]:
         raise AssertionError("main path produced invalid boards or values")
     return state, stats
@@ -845,7 +886,7 @@ def phase_time_breakdown(P, params, state, cfg, dev, gen, step_ms, card):
         ("obs_value", P["value_net"], "forward"), ("select", R, "_select_action_split"),
         ("env", VE, "step_chosen"), ("reset", VE, "reset_where"),
     ]
-    inner = [("fused_value", R, "fused_value")]
+    inner = [("fused_value", R, "fused_value"), ("nd_tail", P["nd"], "nd_tail_fused")]
     state = stage_times(P, params, state, cfg, dev, gen, 8, stages, inner, "[7 time]", card)
     profile_steps(P, params, state, cfg, dev, gen, 4, step_ms, card, "[7 time]")
 
@@ -1057,8 +1098,9 @@ def phase_twoply_kernels_vs_plain(P, params, nd_seen, fv_seen, dev, gen, card):
     error is taken over every compared integer."""
     worst, after_everywhere, kept, rows = nd_tail_vs_plain(P, nd_seen, dev)
     n_pre = torch.cat([a[0].sum(-1) for a in nd_seen])
-    log(f"[9 kernels vs plain 2-ply] nd_tail: {len(nd_seen)} calls at "
-        f"{list(nd_seen[0][0].shape[:1]) + [nd_seen[0][7]]} (K = a_max = {nd_seen[0][8]}), "
+    shapes = collections.Counter((a[0].shape[0], a[7], a[8]) for a in nd_seen)
+    log(f"[9 kernels vs plain 2-ply] nd_tail: {len(nd_seen)} calls, (rows, K, a_max) x calls "
+        f"{sorted(shapes.items())}, "
         f"{rows} rows, {kept} kept slots, n_pre mean {float(n_pre.float().mean()):.2f} "
         f"max {int(n_pre.max())}; max |diff| over keep/n_pre/pct/kpair and kept "
         f"afterstates = {worst}; after equal at every slot: {after_everywhere} {card}")
@@ -1114,7 +1156,7 @@ def phase_twoply_main(P, params, state, cfg, dev, gen, card):
         "card": card,
     }
     log(f"[10 main path 2-ply] {json.dumps(stats)}")
-    if nd_launches != ND_LAUNCHES_PER_STEP * STEPS_2PLY:
+    if nd_launches != ND_LAUNCHES_PER_STEP_2PLY * STEPS_2PLY:
         raise AssertionError(f"nd_tail launched {nd_launches} times in {STEPS_2PLY} steps")
     if fv_launches != FV_LAUNCHES_PER_STEP_2PLY * STEPS_2PLY:
         raise AssertionError(f"fused_value launched {fv_launches} times in {STEPS_2PLY} steps")
@@ -1441,8 +1483,9 @@ def phase_train_1ply(P, dev, gen, card):
     steps = 64 * stats["updates"]
     if stats["updates"] != 4 or not all(math.isfinite(x) for x in stats["loss"]):
         raise AssertionError(f"[16 train 1-ply] metrics lines: {stats['updates']}, {stats['loss']}")
-    if stats["launches"]["fused_value"] != 2 * steps \
-            or stats["launches"]["dd_expand"] != DD_LAUNCHES_PER_STEP_1PLY * steps:
+    if stats["launches"] != {"fused_value": 2 * steps,
+                             "nd_tail": ND_LAUNCHES_PER_STEP_1PLY * steps,
+                             "dd_expand": DD_LAUNCHES_PER_STEP_1PLY * steps}:
         raise AssertionError(f"[16 train 1-ply] launched {stats['launches']} in {steps} steps")
     bitwise = (_states_equal(P, restored, saved["state"]) and int(restored.version) == 4
                and torch.equal(gen_state, saved["gen"]) and step == saved["step"])
@@ -1480,7 +1523,7 @@ def phase_train_2ply(P, dev, card):
                  **update_breakdown(stats, 8))
     log(f"[17 train 2-ply] {json.dumps(stats)}")
     want = {"fused_value": FV_LAUNCHES_PER_STEP_2PLY * steps,
-            "nd_tail": ND_LAUNCHES_PER_STEP * steps,
+            "nd_tail": ND_LAUNCHES_PER_STEP_2PLY * steps,
             "dd_expand": DD_LAUNCHES_PER_STEP_2PLY * steps}
     if stats["updates"] != 2 or stats["launches"] != want:
         raise AssertionError(f"[17 train 2-ply] {stats['updates']} updates, launches "
@@ -1496,8 +1539,8 @@ def phase_train_sync(P, dev, card):
     finite = all(math.isfinite(v) for v in lines[0].values())
     if stats["updates"] != 1 or not finite or stats["episode_count"] != 256:
         raise AssertionError("[18 train sync] bad metrics line")
-    if stats["launches"]["fused_value"] != 2 * 300 \
-            or stats["launches"]["dd_expand"] != DD_LAUNCHES_PER_STEP_1PLY * 300:
+    if stats["launches"] != {"fused_value": 2 * 300, "nd_tail": ND_LAUNCHES_PER_STEP_1PLY * 300,
+                             "dd_expand": DD_LAUNCHES_PER_STEP_1PLY * 300}:
         raise AssertionError(f"[18 train sync] launched {stats['launches']} in 300 steps")
     return stats
 
@@ -1597,6 +1640,7 @@ def phase_graph_vs_eager_1ply(P, dev, card):
     dv = compare_rollouts(eager, graphed, "graphed vs eager 1-ply")
     _gate(launches["fused_value"], 2 * steps, "graphed 1-ply fused_value")
     _gate(launches["dd_expand"], DD_LAUNCHES_PER_STEP_1PLY * steps, "graphed 1-ply dd_expand")
+    _gate(launches["nd_tail"], ND_LAUNCHES_PER_STEP_1PLY * steps, "graphed 1-ply nd_tail")
     start = td.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)._replace(
         params=params, opt_state=td.init_adam(params))
     trained, metrics = td.update(start, graphed[1], cfg, dev)
@@ -1607,6 +1651,8 @@ def phase_graph_vs_eager_1ply(P, dev, card):
     _gate(launches2["fused_value"], 2 * steps, "graphed 1-ply fused_value after an update")
     _gate(launches2["dd_expand"], DD_LAUNCHES_PER_STEP_1PLY * steps,
           "graphed 1-ply dd_expand after an update")
+    _gate(launches2["nd_tail"], ND_LAUNCHES_PER_STEP_1PLY * steps,
+          "graphed 1-ply nd_tail after an update")
     # the update moved the values, so a graph still reading the old packed
     # G would have taken other decisions
     boards, flag = eager2[1].packed_board[0], 1 - eager2[1].player[0]
@@ -1615,7 +1661,8 @@ def phase_graph_vs_eager_1ply(P, dev, card):
     moved = float((P["fv"].fused_value_plain(boards, flag, params) - before).abs().max())
     stats = dict(batch=B_PROD, steps=steps, chunk=chunk, launches=launches["fused_value"],
                  launches_after_update=launches2["fused_value"],
-                 dd_launches=launches["dd_expand"] + launches2["dd_expand"], max_abs_dv=dv,
+                 dd_launches=launches["dd_expand"] + launches2["dd_expand"],
+                 nd_launches=launches["nd_tail"] + launches2["nd_tail"], max_abs_dv=dv,
                  after_update_max_abs_dv=dv2, loss=float(metrics["loss"]),
                  values_moved_by_update=moved, games_finished=int(graphed[1].done.sum()),
                  card=card)
@@ -1635,7 +1682,7 @@ def phase_graph_vs_eager_2ply(P, dev, card):
     eager, graphed, launches = eager_and_graphed(P, params, cfg, B_TWOPLY, steps, chunk, 13, dev)
     dv = compare_rollouts(eager, graphed, "graphed vs eager 2-ply")
     _gate(launches, {"fused_value": FV_LAUNCHES_PER_STEP_2PLY * steps,
-                     "nd_tail": ND_LAUNCHES_PER_STEP * steps,
+                     "nd_tail": ND_LAUNCHES_PER_STEP_2PLY * steps,
                      "dd_expand": DD_LAUNCHES_PER_STEP_2PLY * steps}, "graphed 2-ply")
     stats = dict(batch=B_TWOPLY, steps=steps, chunk=chunk, launches=launches, max_abs_dv=dv,
                  card=card)
@@ -1680,9 +1727,10 @@ def phase_graph_times(P, dev, card):
     out = {}
     for name, cfg, batch, steps, chunks, per_step in (
         ("1ply", production_config(P), B_PROD, GRAPH_STEPS_1PLY, (1, 4, 16),
-         {"fused_value": 2, "nd_tail": 0, "dd_expand": DD_LAUNCHES_PER_STEP_1PLY}),
+         {"fused_value": 2, "nd_tail": ND_LAUNCHES_PER_STEP_1PLY,
+          "dd_expand": DD_LAUNCHES_PER_STEP_1PLY}),
         ("2ply", twoply_config(P), B_TWOPLY, STEPS_2PLY, (1, 4),
-         {"fused_value": FV_LAUNCHES_PER_STEP_2PLY, "nd_tail": ND_LAUNCHES_PER_STEP,
+         {"fused_value": FV_LAUNCHES_PER_STEP_2PLY, "nd_tail": ND_LAUNCHES_PER_STEP_2PLY,
           "dd_expand": DD_LAUNCHES_PER_STEP_2PLY}),
     ):
         temp = cfg.train.initial_temperature
@@ -2244,8 +2292,9 @@ def phase_mesh_cli(P, dev, card, train1):
     for ln in lines:
         if not MESH_KEYS <= set(ln) or not all(math.isfinite(v) for v in ln.values()):
             raise AssertionError(f"[29 mesh] metrics line {ln}")
-    if stats["launches"]["fused_value"] != 2 * steps \
-            or stats["launches"]["dd_expand"] != DD_LAUNCHES_PER_STEP_1PLY * steps:
+    if stats["launches"] != {"fused_value": 2 * steps,
+                             "nd_tail": ND_LAUNCHES_PER_STEP_1PLY * steps,
+                             "dd_expand": DD_LAUNCHES_PER_STEP_1PLY * steps}:
         raise AssertionError(f"[29 mesh] launched {stats['launches']} in {steps} steps")
     cfg = kept["cfg"]
     gen = torch.Generator(device=dev)
@@ -2657,7 +2706,10 @@ def phase_gram(P, dev, gen, card):
         timed_steps(P, params, state, c, dev, gen, 1, noises)
     for name, c in (("sig", cfg), ("gram", gram), ("gram_again", gram), ("sig_again", cfg)):
         _, _, ms, launches = timed_steps(P, params, state, c, dev, gen, GRAM_STEPS, noises)
-        _gate(launches, {"fused_value": 2 * GRAM_STEPS, "nd_tail": 0}, f"[31 gram] {name}")
+        # B2 dedups by signature only: the Gram dedup's tiers run the plain tail
+        nd_per_step = 0 if name.startswith("gram") else ND_LAUNCHES_PER_STEP_1PLY
+        _gate(launches, {"fused_value": 2 * GRAM_STEPS, "nd_tail": nd_per_step * GRAM_STEPS},
+              f"[31 gram] {name}")
         out[name] = dict(ms_per_step=ms, launches=launches)
     log(f"[31 gram] B={B_PROD}: decisions, planes and integer state identical; ms a step "
         f"(eager, same noise): {json.dumps(out)} {card}")
@@ -2778,7 +2830,8 @@ def phase_scan_and_value_first(P, dev, gen, card):
         twoply_steps(P, params, state, cfg, dev, gen, 1)  # warm-up
         _, traj, ms, launches = timed_steps(P, params, state, cfg, dev, gen, SCAN_STEPS, noises)
         _gate(launches, {"fused_value": SCAN_STEPS * (want["fused_value"] + 1),
-                         "nd_tail": SCAN_STEPS * want["nd_tail"]}, f"[32 scan] {name} steps")
+                         "nd_tail": SCAN_STEPS * (want["nd_tail"] + ND_TIER_LAUNCHES)},
+              f"[32 scan] {name} steps")
         out["steps"][name] = dict(batch=B_TWOPLY, ms_per_step=ms, launches=launches,
                                   env_steps_per_s=B_TWOPLY / (ms / 1e3))
         log(f"[{33 if name == 'value_first16' else 32} {'value first' if name == 'value_first16' else 'scan'}] "
@@ -2849,8 +2902,8 @@ def phase_stress(P, dev, card):
     4,096 positions of each config: (a) the merged legal moves at
     ``MoveGenConfig(algo="canonical", dd_subbatch_div=0)``, doubles bias
     0.35, whose tail is nd_tail at [128, K = 576], one launch a batch; (b)
-    ``legal_moves_split`` at ``MoveGenConfig.fast()`` with iid dice (no
-    kernel). 0 mismatches against the oracle; the overflow rows and
+    ``legal_moves_split`` at ``MoveGenConfig.fast()`` with iid dice, two
+    launches a batch (the tiers). 0 mismatches against the oracle; the overflow rows and
     positions/s of each; nd_tail on batch 0's inputs bit-equal to its plain
     version, one launch timed with its bound."""
     S, nd = P["stress"], P["nd"]
@@ -2877,7 +2930,8 @@ def phase_stress(P, dev, card):
         log(f"[35 stress] config {name}: {json.dumps(rep)} {card}")
         if rep["mismatches"] or rep["positions"] != STRESS_BATCHES * S.BATCH:
             raise AssertionError(f"[35 stress] config {name}: {rep['mismatches']} mismatches")
-        _gate(rep["launches"], STRESS_BATCHES if name == "a" else 0, f"[35 stress] {name} nd_tail")
+        _gate(rep["launches"], STRESS_BATCHES * (1 if name == "a" else ND_TIER_LAUNCHES),
+              f"[35 stress] {name} nd_tail")
         out[name] = rep
     return out
 
@@ -3084,7 +3138,7 @@ def phase_head_to_head(P, dev, card):
 # max(8 // 4, 2) chunks of warm-up and 50 // 4 timed, 4 steps a chunk), the
 # 1 + 4 eager steps of its chunk count, and --eager's run of the same steps
 BENCH_STEPS = (max(8 // 4, 2) + 50 // 4) * 4
-BENCH_LAUNCHES = 2 * (BENCH_STEPS + 1 + 4 + BENCH_STEPS)
+BENCH_1PLY_STEPS = BENCH_STEPS + 1 + 4 + BENCH_STEPS
 BENCH_TWOPLY_STEPS = 2 + 12  # bench_twoply's 2 warm-up and 12 timed steps
 BENCH_KEYS = ("value", "ms_per_step", "mfu", "achieved_bw_frac")
 CEILING = 1.05  # a fraction of a published peak above this means a wrong count
@@ -3129,16 +3183,19 @@ def phase_bench(P, dev, card, graph_ms):
     step graphed at chunk 4 and eager, B = 4096) and the 2-ply bench
     (``scripts.bench_twoply.main``, tuned and plain, B = 1024, graphed at
     chunk 1): one JSON line each with its keys finite and positive, and
-    fused_value launched 2 a step of the 1-ply run (graphed, counted and
-    eager) and 22 a step of the tuned 2-ply run (nd_tail 15). The graphed
+    fused_value and nd_tail launched 2 a step each of the 1-ply run
+    (graphed, counted and eager) and 22 and 17 a step of the tuned 2-ply
+    run. The graphed
     1-ply ms/step beside phase 22's, no gate on time."""
     fv, nd = P["fv"].KERNEL, P["nd"].KERNEL
     out = {}
     for name, main, argv, want in (
-        ("1ply", P["bench"].main, ["--eager"], {"fused_value": BENCH_LAUNCHES, "nd_tail": 0}),
+        ("1ply", P["bench"].main, ["--eager"],
+         {"fused_value": 2 * BENCH_1PLY_STEPS,
+          "nd_tail": ND_LAUNCHES_PER_STEP_1PLY * BENCH_1PLY_STEPS}),
         ("2ply_tuned", P["bench_twoply"].main, [],
          {"fused_value": FV_LAUNCHES_PER_STEP_2PLY * BENCH_TWOPLY_STEPS,
-          "nd_tail": ND_LAUNCHES_PER_STEP * BENCH_TWOPLY_STEPS}),
+          "nd_tail": ND_LAUNCHES_PER_STEP_2PLY * BENCH_TWOPLY_STEPS}),
         ("2ply_plain", P["bench_twoply"].main, ["1024", "12", "plain"], None),
     ):
         P["graphs"].clear_graphs()
@@ -3483,17 +3540,26 @@ def main() -> int:
     params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     state = P["vec_env"].reset(B_PROD, gen, device=dev)
-    state, real_inputs = capture_candidates(P, params, state, cfg, dev, gen)
+    state, real_inputs, nd1_seen = capture_candidates(P, params, state, cfg, dev, gen)
     if [tuple(b.shape[:-1]) for b, _ in real_inputs] != [(B_PROD, 96), (B_PROD // 16, 448)]:
         raise AssertionError(f"unexpected main-path shapes {[b.shape for b, _ in real_inputs]}")
+    tiers = [(B_PROD, 96, 448), (B_PROD // cfg.movegen.nd_wide_div, 288, 448)]
+    if [(a[0].shape[0], a[7], a[8]) for a in nd1_seen] != tiers:
+        raise AssertionError(f"unexpected main-path nd_tail calls "
+                             f"{[(a[0].shape, a[7:]) for a in nd1_seen]}")
     max_err = phase_kernel_vs_plain(P, params, real_inputs, dev, gen, card)
+    nd1_err = phase_tiers_vs_plain(P, nd1_seen, dev, card)
 
     state, stats = phase_main_path(P, params, state, cfg, dev, gen, card)
     phase_same_step(P, params, state, cfg, dev, gen, card)
     phase_card_vs_cpu(P, params, cfg, dev, gen, card)
     phase_time_breakdown(P, params, state, cfg, dev, gen, stats["ms_per_step"], card)
     fv1_step = phase_kernel_timing(P, params, real_inputs, dev, card)
-    del real_inputs, state
+    nd1_per, nd1_step = nd_tail_timing(P, nd1_seen, dev)
+    log(f"[8 kernel time] nd_tail per tier launch: "
+        f"{json.dumps([{k: r[k] for k in ('rows', 'K', 'present_per_row', 'bound_ms', 'events_ms', 'plain_ms')} for r in nd1_per])}; "
+        f"one step's two launches: {json.dumps(nd1_step)} {card}")
+    del real_inputs, nd1_seen, state
 
     cfg2 = twoply_config(P)
     state2 = P["vec_env"].reset(B_TWOPLY, gen, device=dev)
@@ -3503,9 +3569,12 @@ def main() -> int:
     shapes = [tuple(b.shape[:-1]) for b, _ in fv_seen]
     want = [(B_TWOPLY, 448)] + [(B_TWOPLY, 4, 96)] * 15 + [(B_TWOPLY, 4, 64)] * 3 + [
         (B_TWOPLY, 4, 128)] * 3
-    nd_shapes = {(a[0].shape[0], a[7], a[8]) for a in nd_seen}
-    if shapes != want or len(nd_seen) != 15 or nd_shapes != {(reply, 96, 96)}:
-        raise AssertionError(f"unexpected 2-ply shapes {shapes} {nd_shapes} x{len(nd_seen)}")
+    # the step's own moves (two tiers at fast() widths), then the 15 reply rolls
+    want_nd = [(B_TWOPLY, 96, 448), (B_TWOPLY // cfg2.movegen.nd_wide_div, 288, 448)] + [
+        (reply, 96, 96)] * ND_REPLY_LAUNCHES
+    nd_shapes = [(a[0].shape[0], a[7], a[8]) for a in nd_seen]
+    if shapes != want or nd_shapes != want_nd:
+        raise AssertionError(f"unexpected 2-ply shapes {shapes} {nd_shapes}")
     nd_err, fv2_err = phase_twoply_kernels_vs_plain(P, params, nd_seen, fv_seen, dev, gen, card)
     state2, stats2 = phase_twoply_main(P, params, state2, cfg2, dev, gen, card)
     phase_twoply_kernel_vs_no_kernel(P, params, state2, cfg2, dev, gen, card)
@@ -3538,7 +3607,8 @@ def main() -> int:
     gt = phase_graph_times(P, dev, card)
     graph_fv = (g1["launches"] + g1["launches_after_update"] + g2["launches"]["fused_value"]
                 + sum(r["launches"]["fused_value"] for r in gt.values()))
-    graph_nd = g2["launches"]["nd_tail"] + sum(r["launches"]["nd_tail"] for r in gt.values())
+    graph_nd = (g1["nd_launches"] + g2["launches"]["nd_tail"]
+                + sum(r["launches"]["nd_tail"] for r in gt.values()))
     graph_dd = (g1["dd_launches"] + g2["launches"]["dd_expand"]
                 + sum(r["launches"]["dd_expand"] for r in gt.values()))
 
@@ -3572,7 +3642,8 @@ def main() -> int:
                                                       sweep))
                    for k in ("fused_value", "nd_tail")}
     # the tools' launches (phases 35-38), each run counted from 0
-    tools_nd = {"stress": stress["a"]["launches"], "guard": guard["launches"],
+    tools_nd = {"stress": stress["a"]["launches"] + stress["b"]["launches"],
+                "guard": guard["launches"],
                 "parity_train": parity["train_launches"], "curve": parity["curve_launches"],
                 "head_to_head": h2h["launches"]}
     # the launches of phases 30-33's timed runs, each counted from 0
@@ -3635,11 +3706,14 @@ def main() -> int:
             "route": "cuda",
             "source": ND_SOURCE,
             "replaces": ND_REPLACES,
-            "launches": stats2["nd_tail_launches"] + train2["launches"]["nd_tail"] + graph_nd
-            + eval_nd + a16["nd_tail"] + sum(tools_nd.values()) + bench_tools["nd_tail"],
-            "max_abs_err": max(nd_err, tiered["nd_err"],
+            "launches": stats["nd_tail_launches"] + stats2["nd_tail_launches"]
+            + sum(t["launches"]["nd_tail"] for t in trains.values()) + graph_nd
+            + mesh["launches"]["nd_tail"] + eval_nd + a16["nd_tail"] + sum(tools_nd.values())
+            + bench_tools["nd_tail"],
+            "max_abs_err": max(nd_err, nd1_err, tiered["nd_err"],
                                *(r.get("nd_err", 0.0) for r in scan["kernels"].values())),
-            # one 2-ply step's 15 launches at [4096 rows, K = 96], summed
+            # one 2-ply step's 17 launches: its own two tiers ([1024, K = 96],
+            # [128, K = 288]) and 15 at [4096 rows, K = 96], summed
             "ms": nd_step["ms"],
             "plain_ms": nd_step["plain_ms"],
             "bound_ms": nd_step["bound_ms"],
@@ -3647,9 +3721,15 @@ def main() -> int:
             "library_ms": None,
             "ms_per_launch": nd_step["ms"] / nd_step["calls_per_step"],
             "wrapper_ms": nd_step["wrapper_ms"],
-            "paths": {"2ply": {"launches": stats2["nd_tail_launches"]},
-                      "train_2ply": {"launches": train2["launches"]["nd_tail"]},
+            "paths": {# the 1-ply step's two tiers, [4096, K = 96] and [512, K = 288]
+                      "1ply": {"launches": stats["nd_tail_launches"],
+                               **{k: nd1_step[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                           "bound_by")}},
+                      "2ply": {"launches": stats2["nd_tail_launches"]},
+                      **{k: {"launches": t["launches"]["nd_tail"]} for k, t in trains.items()},
                       "graphs": {"launches": graph_nd},
+                      # phase 29a: the mesh train step at 1 x 1 through the CLI
+                      "train_mesh": {"launches": mesh["launches"]["nd_tail"]},
                       # the graphed matches of phase 25 and the evaluate CLI
                       # runs of phase 26; one launch at [1024, K = 576] timed
                       "eval": {"launches": eval_nd, "K": 576,

@@ -193,9 +193,9 @@ class MoveGenConfig:
     nd_sig_dedup: bool = True
     # In the JAX package: run the single-pass non-doubles tail as one fused
     # Pallas kernel. Kept so that configs read the same; the port ignores
-    # it: its single-pass tail always goes through
-    # experimental/nd_tail.nd_tail_fused (the CUDA kernel on a card, the
-    # bit-identical plain version on the CPU).
+    # it: its single-pass tail and both tiers of the two-tier tail always go
+    # through experimental/nd_tail.nd_tail_fused with signature dedup (the
+    # CUDA kernel on a card, the bit-identical plain version on the CPU).
     nd_tail_kernel: bool = False
     # Two-tier doubles expansion inside legal_moves' compacted sub-batch:
     # when non-empty, (t2, t3, t4) narrow level widths run for EVERY doubles

@@ -10,11 +10,14 @@ docstring for the algorithms and their reference citations):
   dropped by canonical delta signature (first occurrence kept), then the
   max-submove filter and the Q7 cap apply. The tail runs two-tier (width
   ``nd_tier`` for every game, full width ``nd_dedup_k`` on a sub-batch of the
-  wide games), or else as one full-width pass through the fused tail
-  (``experimental/nd_tail.py``: the CUDA kernel on a card; the 2-ply reply
-  path). With ``nd_sig_dedup=False`` the dedup compares whole afterstates
-  instead (JAX's Gram dedup, ``_dup_earlier_mask``), and the single-pass
-  tail runs in plain PyTorch, where JAX runs its plain ``_nd_tail`` too.
+  wide games: the 1-ply split planes and the merged moves at ``fast()``
+  widths), or else as one full-width pass (the 2-ply reply path). Either
+  way each pass goes through the fused tail (``experimental/nd_tail.py``:
+  the CUDA kernel B2 on a card, its plain version on the CPU). With
+  ``nd_sig_dedup=False`` the dedup compares whole afterstates instead
+  (JAX's Gram dedup, ``_dup_earlier_mask``), and the tail runs in plain
+  PyTorch, where JAX runs its plain ``_nd_tail`` too. ``_tier_tail`` is the
+  one place that chooses between the two.
 * ``enumerate_nondoubles_raw`` stops before the dedup: every present
   candidate in insertion order with its signature and the exact
   max-submove bit (``nd_has_pair_exact``), for the 2-ply scorer's
@@ -370,6 +373,45 @@ class NdPlanes(NamedTuple):
     overflow: torch.Tensor  # [n] truncation ledger (Q7 class)
 
 
+def _tier_tail(
+    b0: Board,
+    b1a: Board,
+    b1b: Board,
+    valid: torch.Tensor,
+    player: torch.Tensor,
+    d_hi: torch.Tensor,
+    d_lo: torch.Tensor,
+    width: int,
+    cfg: MoveGenConfig,
+) -> Tuple[Board, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One pass of the non-doubles tail on a flat batch: (afterstates [n,
+    width], keep [n, width], candidate total int32 [n], pre-cap survivor
+    total int32 [n]). Every pass, single or a tier, goes through here.
+
+    With signature dedup it is ``experimental.nd_tail.nd_tail_fused``: the
+    CUDA kernel B2 on a card, bit-identical to ``_nd_tail`` in every output,
+    slots that are not kept included, which raises on a width it does not
+    take (``nd_tail.MAX_K``); on the CPU its plain version, which is
+    ``_nd_tail`` itself. ``nd_tail_fused`` is looked up at each call, so
+    that code which replaces the module's attribute (to record the rows B2
+    is handed) sees every pass. With the Gram dedup (``nd_sig_dedup=False``)
+    the plain ``_nd_tail`` runs, since B2 dedups by signature only; on a
+    card that counts as the tracer's ``nd_tail_plain``."""
+    if cfg.nd_sig_dedup:
+        from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
+
+        after, keep, n_pre, pct, _ = nd_tail.nd_tail_fused(
+            valid, b1a.data, b1b.data, b0.data, player, d_hi, d_lo, width, cfg.a_max
+        )
+        return Board(data=after), keep, n_pre, pct
+    if valid.is_cuda:
+        profiling.count("nd_tail_plain")
+    after, keep, pct, _ = _nd_tail(
+        b0, b1a, b1b, valid, player, d_hi, d_lo, width, cfg.a_max, False
+    )
+    return after, keep, _popcount(valid), pct
+
+
 def _nd_two_tier(
     board: Board,
     pa: _Pass,
@@ -383,20 +425,19 @@ def _nd_two_tier(
     """Tier 1 runs the tail at width T for every game (exact whenever
     n_pre <= T); tier 2 gathers the wide games into a batch/div sub-batch
     and runs the full-width tail there. A wide game beyond the sub-batch
-    keeps its tier-1 result and is flagged via overflow."""
+    keeps its tier-1 result and is flagged via overflow. Each tier is one
+    ``_tier_tail`` call: one launch of B2 on a card with signature dedup."""
     K, T = cfg.nd_dedup_k, cfg.nd_tier
-    n_pre = _popcount(valid)
     n = valid.shape[0]
     with scope("nd_tail_t1"):
-        after_n, keep_n, pct_n, _ = _nd_tail(
-            board, pa.b1, pb.b1, valid, player, d_hi, d_lo, T, cfg.a_max,
-            cfg.nd_sig_dedup,
+        after_n, keep_n, n_pre, pct_n = _tier_tail(
+            board, pa.b1, pb.b1, valid, player, d_hi, d_lo, T, cfg
         )
     wide = n_pre > T
     wn = max(8, n // cfg.nd_wide_div)
     sel, sel_ok = _select_set_bits(wide, wn)
     with scope("nd_tail_t2"):
-        after_w, keep_w, pct_w, _ = _nd_tail(
+        after_w, keep_w, _, pct_w = _tier_tail(
             _take0(board, sel),
             _take0(pa.b1, sel),
             _take0(pb.b1, sel),
@@ -405,8 +446,7 @@ def _nd_two_tier(
             d_hi[sel],
             d_lo[sel],
             K,
-            cfg.a_max,
-            cfg.nd_sig_dedup,
+            cfg,
         )
     in_sub, slot = _rows_in(wide, wn)
     pct = torch.where(in_sub, pct_w[slot], pct_n)
@@ -425,14 +465,15 @@ def enumerate_nondoubles(
     (generate_all_moves.py:25-53). ``passes`` supplies precomputed
     (high-first, low-first) passes from ``die_tables`` (the 2-ply scorer).
 
-    The tail runs two-tier when ``0 < nd_tier < nd_dedup_k`` on a flat batch.
-    Else it is one full-width pass: with signature dedup through
-    ``experimental.nd_tail.nd_tail_fused`` (the CUDA kernel on a card, its
-    plain version on the CPU), whatever ``nd_tail_kernel`` says, since the
-    flag only chose the Pallas kernel on the TPU; with the Gram dedup
-    (``nd_sig_dedup=False``) in plain PyTorch on any device, as JAX runs its
-    plain ``_nd_tail`` there (the kernel dedups by signature only). The
-    single pass runs in scope ``nd_tail``, JAX's scope of the same work."""
+    The tail runs two-tier when ``0 < nd_tier < nd_dedup_k`` on a flat batch
+    (``_nd_two_tier``, scopes ``nd_tail_t1`` and ``nd_tail_t2``). Else it is
+    one full-width pass on the flattened batch, in scope ``nd_tail``, JAX's
+    scope of the same work. Each pass is a ``_tier_tail`` call: with
+    signature dedup ``experimental.nd_tail.nd_tail_fused`` (the CUDA kernel
+    on a card, its plain version on the CPU), whatever ``nd_tail_kernel``
+    says, since the flag only chose the Pallas kernel on the TPU; with the
+    Gram dedup (``nd_sig_dedup=False``) the plain ``_nd_tail`` on any
+    device, as JAX runs it there (the kernel dedups by signature only)."""
     with scope("nd_front"):
         pa, pb, valid, d_hi, d_lo = _nd_candidates(board, player, dice, passes)
     K, T = cfg.nd_dedup_k, cfg.nd_tier
@@ -442,29 +483,20 @@ def enumerate_nondoubles(
         after = board_where(pl.in_sub[:, None], _take0(pl.after_w, pl.slot), narrow.boards)
         keep = torch.where(pl.in_sub[:, None], pl.keep_w[pl.slot], narrow.valid)
         overflow = pl.overflow
-    elif not cfg.nd_sig_dedup:
-        with scope("nd_tail"):
-            after, keep, pct, _ = _nd_tail(
-                board, pa.b1, pb.b1, valid, player, d_hi, d_lo, K, cfg.a_max, False
-            )
-        # candidates lost to the dedup-slot cap or the Q7 presented cap
-        overflow = (_popcount(valid) > K) | (pct > cfg.a_max)
     else:
-        from mlp_ppo_2ply_multi_tpu_torch.experimental.nd_tail import nd_tail_fused
-
         bs = board.batch_shape
         n = valid[..., 0].numel()
         row = lambda x: torch.broadcast_to(
             torch.as_tensor(x, device=valid.device), bs
         ).reshape(n)
+        flat = lambda b, *shape: Board(data=b.data.reshape(n, *shape))
         cells = board.data.shape[-1]
         with scope("nd_tail"):
-            after_d, keep, n_pre, pct, _ = nd_tail_fused(
-                valid.reshape(n, valid.shape[-1]), pa.b1.data.reshape(n, N_SLOTS, cells),
-                pb.b1.data.reshape(n, N_SLOTS, cells), board.data.reshape(n, cells),
-                row(player), row(d_hi), row(d_lo), K, cfg.a_max,
+            after, keep, n_pre, pct = _tier_tail(
+                flat(board, cells), flat(pa.b1, N_SLOTS, cells), flat(pb.b1, N_SLOTS, cells),
+                valid.reshape(n, valid.shape[-1]), row(player), row(d_hi), row(d_lo), K, cfg,
             )
-        after = Board(data=after_d.reshape(*bs, K, cells))
+        after = Board(data=after.data.reshape(*bs, K, cells))
         keep = keep.reshape(*bs, K)
         # candidates lost to the dedup-slot cap or the Q7 presented cap
         overflow = ((n_pre > K) | (pct > cfg.a_max)).reshape(bs)

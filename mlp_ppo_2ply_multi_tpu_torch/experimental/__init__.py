@@ -12,7 +12,8 @@ statement about the H100:
   was bit-exact and ~6x slower than XLA (~12 ms vs ~2 ms at [4096, K=96]:
   the 16M scoped-VMEM limit forced 16-row tiles). On the H100 it is the
   hand-written CUDA kernel ``csrc/nd_tail.cu``, which the port takes for
-  every single-pass signature-dedup tail whatever ``nd_tail_kernel`` says.
+  every signature-dedup tail pass, the single pass and both tiers of the
+  two-tier tail, whatever ``nd_tail_kernel`` says.
 
 * ``tiered`` — the two-plane movegen and actor pipeline (a narrow plane at
   tier widths and a full-fidelity wide plane on a compacted sub-batch; the

@@ -3,22 +3,33 @@ delta signature, first-occurrence dedup, max-submove filter and Q7 cap in
 one kernel.
 
 Port of ``mlp_ppo_2ply_multi_tpu/experimental/nd_tail.py`` (the Pallas
-kernel built by ``_make_kernel``). It runs wherever the non-doubles tail is
-a single full-width pass: the 2-ply scorer's reply enumeration (15 calls a
-2-ply step). There JAX chose it with ``MoveGenConfig.nd_tail_kernel``, off
+kernel built by ``_make_kernel``). It runs every pass of the non-doubles
+tail that dedups by signature (``movegen2._tier_tail``): the single
+full-width pass of the 2-ply scorer's reply enumeration (15 calls a 2-ply
+step), and both tiers of the two-tier tail (``movegen2._nd_two_tier``: two
+calls a step of the 1-ply split planes and of the 2-ply step's own moves at
+``fast()`` widths). JAX chose it with ``MoveGenConfig.nd_tail_kernel``, off
 by default because on the TPU the kernel lost to XLA (16-row tiles forced by
-scoped VMEM); that says nothing about this card, and the port takes the
-kernel whatever the flag says.
+scoped VMEM), and only for the single pass; that says nothing about this
+card, and the port takes the kernel whatever the flag says.
 
 Two implementations of one function, bit-identical:
 
 * ``nd_tail_plain`` — plain PyTorch (``movegen2._nd_tail``), the CPU path
   and on the card the kernel's oracle;
 * the CUDA kernel ``csrc/nd_tail.cu`` (sm_90a), built with ``nvcc`` at first
-  use (``ops/_cuda_build.py``) and bound with ``ctypes``.
+  use (``ops/_cuda_build.py``), bound with ``ctypes`` and launched inside
+  the dispatcher op ``mlp_ppo_torch::nd_tail``, so that a profile links its
+  device time to the scopes around the call.
 
 ``nd_tail_fused`` routes a CPU tensor to the plain version and a CUDA tensor
-to the kernel, and raises on anything else.
+to the kernel, and raises on anything else: the kernel takes widths up to
+``MAX_K``, and no route falls back to the plain version on a card.
+``KERNEL.launches`` counts the
+launches that ran, eager and replayed in graphs; the tracer reads it as each
+update opens and closes (``nd_tail_kernel_launches``), and counts the plain
+version's calls on a card with the Gram dedup's plain tail
+(``nd_tail_plain``).
 """
 from __future__ import annotations
 
@@ -31,7 +42,7 @@ import torch
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
 from mlp_ppo_2ply_multi_tpu_torch.engine.movegen2 import _nd_tail
 from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import CudaKernel, aligned16
-from mlp_ppo_2ply_multi_tpu_torch.utils import cost
+from mlp_ppo_2ply_multi_tpu_torch.utils import cost, profiling
 from mlp_ppo_2ply_multi_tpu_torch.utils.cost import CORE_OPS_PER_S, HBM_BYTES_PER_S
 
 N_SLOTS = 27
@@ -90,8 +101,12 @@ def nd_tail_plain(
     n_pre int32 [N], pct int32 [N], kpair bool [N, K]) from the candidate
     bits bool [N, 1512], the pass-A and pass-B children int8 [N, 27, 52], the
     root boards int8 [N, 52] and player, d_hi, d_lo [N]. ``after`` is
-    meaningful at kept slots."""
+    meaningful at kept slots. A call on a card (the kernel's oracle, or this
+    function put in ``nd_tail_fused``'s place) counts as the tracer's
+    ``nd_tail_plain``."""
     _check(valid, b1a, b1b, b0, player, d_hi, d_lo)
+    if valid.is_cuda:
+        profiling.count("nd_tail_plain")
     as64 = lambda x: x.to(torch.int64)
     after, keep, pct, kpair = _nd_tail(
         Board(b0), Board(b1a), Board(b1b), valid, as64(player), as64(d_hi),
@@ -116,14 +131,50 @@ def kernel_operands(valid, b1a, b1b, b0, player, d_hi, d_lo, K: int):
     )
 
 
+def _launch(valid, b1a, b1b, b0, player, d_hi, d_lo, after, keep, n_pre, pct, kpair,
+            K: int, a_max: int) -> None:
+    """The launch op's CUDA body: the ctypes call on the current stream."""
+    lib = KERNEL.load()
+    dev = valid.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nd_tail_launch(
+            valid.data_ptr(), b1a.data_ptr(), b1b.data_ptr(), b0.data_ptr(),
+            player.data_ptr(), d_hi.data_ptr(), d_lo.data_ptr(),
+            after.data_ptr(), keep.data_ptr(), n_pre.data_ptr(), pct.data_ptr(),
+            kpair.data_ptr(), valid.shape[0], K, a_max, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"nd_tail kernel launch failed: CUDA error {rc}")
+
+
+_LIBRARY = []  # the dispatcher library that holds the launch op, made at the first launch
+
+
+def _launch_op():
+    """The launch as the dispatcher op ``mlp_ppo_torch::nd_tail`` (defined at
+    the first launch, for CUDA tensors only). torch.profiler links a kernel
+    to the op that launched it, and so to the scopes around that op; a
+    ctypes launch made outside any op is linked to no event, and its device
+    time falls outside every stage."""
+    if not _LIBRARY:
+        lib = torch.library.Library("mlp_ppo_torch", "FRAGMENT")
+        lib.define("nd_tail(Tensor valid, Tensor b1a, Tensor b1b, Tensor b0, Tensor player, "
+                   "Tensor d_hi, Tensor d_lo, Tensor(a!) after, Tensor(b!) keep, "
+                   "Tensor(c!) n_pre, Tensor(d!) pct, Tensor(e!) kpair, int k, int a_max) -> ()")
+        lib.impl("nd_tail", _launch, "CUDA")
+        _LIBRARY.append(lib)
+    return torch.ops.mlp_ppo_torch.nd_tail
+
+
 def launch_kernel(valid, b1a, b1b, b0, player, d_hi, d_lo, K: int, a_max: int) -> Outputs:
     """Launch the CUDA kernel on operands from ``kernel_operands`` on the
-    current stream. Counts the launch (``CudaKernel.count_launch``: inside
-    a CUDA graph capture it counts once per replay)."""
+    current stream, inside the op ``mlp_ppo_torch::nd_tail``. Counts the
+    launch (``CudaKernel.count_launch``: inside a CUDA graph capture it
+    counts once per replay)."""
     n = valid.shape[0]
     if not (valid.is_cuda and valid.dtype == torch.uint8 and player.dtype == torch.int32):
         raise ValueError("launch_kernel takes operands from kernel_operands")
-    lib = KERNEL.load()
     dev = valid.device
     after = torch.empty((n, K, N_CELLS), dtype=torch.int8, device=dev)
     keep = torch.empty((n, K), dtype=torch.bool, device=dev)
@@ -134,16 +185,8 @@ def launch_kernel(valid, b1a, b1b, b0, player, d_hi, d_lo, K: int, a_max: int) -
         return after, keep, n_pre, pct, kpair
     # asynchronous: the caching allocator reuses the operands' memory only in
     # order on this stream, so temporaries may be freed when this returns
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.nd_tail_launch(
-            valid.data_ptr(), b1a.data_ptr(), b1b.data_ptr(), b0.data_ptr(),
-            player.data_ptr(), d_hi.data_ptr(), d_lo.data_ptr(),
-            after.data_ptr(), keep.data_ptr(), n_pre.data_ptr(), pct.data_ptr(),
-            kpair.data_ptr(), n, K, a_max, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"nd_tail kernel launch failed: CUDA error {rc}")
+    _launch_op()(valid, b1a, b1b, b0, player, d_hi, d_lo, after, keep, n_pre, pct, kpair,
+                 K, a_max)
     KERNEL.count_launch()
     return after, keep, n_pre, pct, kpair
 

@@ -17,7 +17,9 @@ Two configurations:
      Its non-doubles tail is the fused nd_tail kernel at K = 576.
   b  ``Config.production().movegen`` (``MoveGenConfig.fast()``) through
      the main path's ``movegen2.legal_moves_split``, iid dice (bias 0: the
-     production doubles sub-batch assumes them). Each row's afterstates
+     production doubles sub-batch assumes them). Its non-doubles tail is
+     the fused nd_tail kernel twice, at [128, K = 96] and on the wide
+     sub-batch at [16, K = 288]. Each row's afterstates
      are read from the plane it lives in: ``nd_boards`` where ``nd_keep``,
      ``ndw_boards[ndw_slot]`` where ``ndw_in``, ``dd_boards[dd_slot]``
      where ``dd_in``.

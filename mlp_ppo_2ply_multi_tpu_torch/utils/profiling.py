@@ -29,7 +29,11 @@ bounded, while ``MLP_PPO_TORCH_TRACE`` is not ``0`` (the default records):
   and ``build`` spans), the doubles kernel's launches (``dd_kernel_launches``:
   ``ops.dd_expand``'s launch count, eager and replayed, read as the update
   opens and closes) and the plain doubles chain's calls on a card
-  (``dd_plain``), by update; the deep net's kernel D2 (``ops.mlp_value``):
+  (``dd_plain``), by update; the non-doubles tail kernel B2's launches
+  (``nd_tail_kernel_launches``: ``experimental.nd_tail``'s launch count,
+  read as the doubles kernel's) and the plain tail's runs on a card
+  (``nd_tail_plain``: the Gram dedup's passes, ``movegen2._tier_tail``, and
+  calls of ``nd_tail.nd_tail_plain``); the deep net's kernel D2 (``ops.mlp_value``):
   its launches (``mlp_kernel_launches``, read as the doubles kernel's), and
   the rows its callers needed valued and the rows it computed
   (``mlp_rows_needed``, ``mlp_rows_computed``: device counters the kernel
@@ -255,8 +259,9 @@ def device_stage_times(fn: Callable, *args) -> StageTimes:
     to the CPU op that launched it, so it needs an eager call: a CUDA graph
     replay links every kernel to ``cudaGraphLaunch``. A kernel launched
     through ctypes outside any op is linked to no event, scopes around it or
-    not, and counts in ``traced_ms`` alone (the doubles kernel launches
-    inside a dispatcher op of its own, ``ops.dd_expand``, for this). Empty
+    not, and counts in ``traced_ms`` alone (the doubles kernel and B2 launch
+    inside dispatcher ops of their own, ``ops.dd_expand`` and
+    ``experimental.nd_tail``, for this). Empty
     when the result holds no CUDA tensor."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -313,10 +318,12 @@ STAMP_KERNEL = "stamp_kernel"  # ``ops.stamp``'s kernel, by its name in a profil
 KINDS = {"step": 1, "launch": 2, "learner": 3}  # a row's kind, in its last column
 # counters that ``trace_summary`` reads by update: the doubles kernel's
 # launches (``ops.dd_expand``, read as each update opens and closes), the
-# plain doubles chain's calls on a card (``count``), D2's launches (as the
-# doubles kernel's) and its rows needed and computed (device counters)
+# plain doubles chain's calls on a card (``count``), B2's launches (as the
+# doubles kernel's) and the plain tail's runs on a card (``count``), D2's launches
+# (as the doubles kernel's) and its rows needed and computed (device counters)
 MLP_ROWS = ("mlp_rows_needed", "mlp_rows_computed")
-UPDATE_COUNTERS = ("dd_kernel_launches", "dd_plain", "mlp_kernel_launches") + MLP_ROWS
+UPDATE_COUNTERS = ("dd_kernel_launches", "dd_plain", "nd_tail_kernel_launches",
+                   "nd_tail_plain", "mlp_kernel_launches") + MLP_ROWS
 
 
 def tracing() -> bool:
@@ -373,6 +380,14 @@ def _dd_kernel_launches() -> int:
     return dd_expand.KERNEL.launches
 
 
+def _nd_tail_kernel_launches() -> int:
+    """B2's launches that ran so far, eager and replayed
+    (``experimental.nd_tail.KERNEL.launches``)."""
+    from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail  # it imports this module
+
+    return nd_tail.KERNEL.launches
+
+
 def _mlp_value():
     """``ops.mlp_value`` where it is loaded, else None (nothing ran it yet;
     it imports this module)."""
@@ -402,6 +417,7 @@ class _Update:
         self.spans: List[Span] = []
         self.counters: Dict[str, int] = {}
         self.dd_launches = _dd_kernel_launches()  # at the update's opening
+        self.nd_launches = _nd_tail_kernel_launches()
         self.mlp_launches = _mlp_kernel_launches()
 
 
@@ -613,6 +629,8 @@ class Tracer:
         if upd is None:
             return
         upd.counters["dd_kernel_launches"] = _dd_kernel_launches() - upd.dd_launches
+        upd.counters["nd_tail_kernel_launches"] = (_nd_tail_kernel_launches()
+                                                   - upd.nd_launches)
         upd.counters["mlp_kernel_launches"] = _mlp_kernel_launches() - upd.mlp_launches
         if not (upd.rows or upd.spans):
             return

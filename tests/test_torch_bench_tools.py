@@ -421,7 +421,7 @@ def test_roofline_and_trace_attr_cpu_modes(capsys, tmp_path):
     assert not {"ms_per_step", "env_steps_per_s", "achieved_tflops", "achieved_gbs",
                 "mfu_vs_datasheet", "bw_frac_vs_datasheet"} & set(out)
     assert json.loads((tmp_path / "r.json").read_text())["oneply"] == out
-    assert trace_attr.main(["prod", "16", "5", "--device", "cpu"]) == 0
+    assert trace_attr.main(["prod", "16", "12", "--device", "cpu"]) == 0
     text = capsys.readouterr().out
     assert "prod B=16 on the CPU" in text and "nd_tail_t1" in text
     assert not re.search(r"\d ?ms\b", text)

@@ -22,8 +22,7 @@ import torch
 from mlp_ppo_2ply_multi_tpu_torch.core.config import Config, MoveGenConfig, TwoPlyConfig
 from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
-from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
-from mlp_ppo_2ply_multi_tpu_torch.ops import _cuda_build, dd_expand
+from mlp_ppo_2ply_multi_tpu_torch.ops import _cuda_build, dd_expand, fused_value
 from mlp_ppo_2ply_multi_tpu_torch.oracle.sampling import sample_cases
 from mlp_ppo_2ply_multi_tpu_torch.utils import profiling as P
 
@@ -210,7 +209,7 @@ def test_other_kernels_count_no_tracer_counter(monkeypatch):
     kernel's launches, eager and replayed, leave its update counters at 0."""
     monkeypatch.setenv(P.TRACE_ENV, "1")
     P.TRACER.reset()
-    k = nd_tail.KERNEL
+    k = fused_value.KERNEL
     monkeypatch.setattr(k, "launches", 0)
     held = _cuda_build.GraphLaunches()
     held.per_replay = {k: 15}
@@ -220,8 +219,8 @@ def test_other_kernels_count_no_tracer_counter(monkeypatch):
         held.replayed(2)
     P.trace_flush()
     (rec,) = P.trace_records()
-    assert k.launches == 31 and rec["counters"] == {"dd_kernel_launches": 0,
-                                                    "mlp_kernel_launches": 0}
+    assert k.launches == 31 and rec["counters"] == {
+        "dd_kernel_launches": 0, "nd_tail_kernel_launches": 0, "mlp_kernel_launches": 0}
     assert dict(P.TRACER.counters) == {}
     P.TRACER.reset()
 

@@ -123,7 +123,7 @@ def test_graphed_two_ply_equals_eager_with_both_kernels():
     nd0 = nd_tail.KERNEL.launches
     eager, graphed, launches = _both(params, cfg, dev, seed=4, steps=4, chunk=2, batch=32)
     _assert_same(eager, graphed)
-    assert launches == 22 * 4 and nd_tail.KERNEL.launches - nd0 == 2 * 15 * 4
+    assert launches == 22 * 4 and nd_tail.KERNEL.launches - nd0 == 2 * 17 * 4
 
 
 @pytest.mark.gpu
@@ -184,3 +184,42 @@ def test_a_synchronising_op_in_the_step_raises(monkeypatch):
         rollout.rollout_chunked(params, st, 1.0, cfg, 4, device=dev)
     assert torch.cuda.get_sync_debug_mode() == 0
     assert len(graphs.GRAPHS) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("twoply, batch, steps, chunk, per_step", [
+    (False, 1024, 8, 4, 2),  # legal_moves_split's two tiers
+    (True, 256, 4, 2, 17),  # merged legal_moves' two tiers and 15 reply rolls
+])
+def test_tracer_counts_nd_tail_launches_of_graphed_steps(twoply, batch, steps, chunk, per_step,
+                                                         monkeypatch):
+    """The tracer's record of a graphed rollout: B2's launches, replays
+    included, and no plain call; with its plain version swapped in, no
+    launch, and the plain calls counted where Python makes them (the eager
+    first chunk and the capture; a replay runs no Python)."""
+    from mlp_ppo_2ply_multi_tpu_torch.utils import profiling as P
+
+    dev = _card()
+    monkeypatch.setenv(P.TRACE_ENV, "1")
+    cfg = _production(twoply)
+    params = value_net.load_checkpoint(CKPT, device=dev)
+    recs = {}
+    for plain in (False, True):
+        graphs.clear_graphs()
+        P.TRACER.reset()
+        with monkeypatch.context() as m:
+            if plain:
+                m.setattr(nd_tail, "nd_tail_fused", nd_tail.nd_tail_plain)
+            gen = torch.Generator(device=dev).manual_seed(6)
+            st = vec_env.reset(batch, gen, device=dev)
+            rollout.rollout_chunked(params, st, 1.0, cfg, steps, chunk=chunk, gen=gen,
+                                    device=dev)
+            P.trace_flush()
+            torch.cuda.synchronize()
+            (recs[plain],) = [r for r in P.trace_records() if r["rollout"] is not None]
+    graphs.clear_graphs()
+    assert recs[False]["counters"].get("nd_tail_kernel_launches") == per_step * steps
+    assert recs[False]["counters"].get("nd_tail_plain", 0) == 0
+    assert recs[True]["counters"].get("nd_tail_kernel_launches", 0) == 0
+    assert recs[True]["counters"].get("nd_tail_plain") == 2 * chunk * per_step
+    P.TRACER.reset()

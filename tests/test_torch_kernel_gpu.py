@@ -135,14 +135,21 @@ def _random_positions(n, seed, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,K,a_max", [(4096, 96, 96), (1000, 288, 64), (37, 8, 4)])
+@pytest.mark.parametrize("rows,K,a_max", [(4096, 96, 96), (1000, 288, 64), (37, 8, 4),
+                                          (4096, 96, 448), (512, 288, 448)])
 def test_nd_tail_kernel_matches_plain(rows, K, a_max):
-    """The reply path's shape, a wide K with a cap below it, and a tiny
-    ragged case that cuts most candidates."""
+    """The reply path's shape, a wide K with a cap below it, a tiny ragged
+    case that cuts most candidates, and the two-tier tail's shapes at
+    ``fast()`` widths (the production cap above K), whose last quarter of
+    rows is all-false, as tier 2's sub-batch is beyond its wide games."""
     from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
 
     dev = _card()
     inputs = _random_positions(rows, rows + K, dev)
+    if a_max > K:  # the tier shapes
+        valid = inputs[0].clone()
+        valid[rows - rows // 4:] = False
+        inputs = (valid,) + tuple(inputs[1:])
     before = nd_tail.KERNEL.launches
     got = nd_tail.nd_tail_fused(*inputs, K, a_max)
     assert nd_tail.KERNEL.launches == before + 1
@@ -213,6 +220,193 @@ def test_single_pass_tail_launches_the_kernel_whatever_the_flag():
             Board(b0), player, dice, MoveGenConfig(nd_tier=0, nd_tail_kernel=flag)
         )
         assert nd_tail.KERNEL.launches == before + 1
+
+
+def _wide_mix(n, n_wide, seed, dev):
+    """n positions, player to move and a roll: the first ``n_wide`` built
+    wide (the mover's checkers on 8-14 points, the opponent's stacked on
+    2-4, a non-double roll: most have more than 96 candidates), the rest
+    sampled (``oracle.sampling.sample_cases``, doubles included)."""
+    import numpy as np
+
+    from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
+    from mlp_ppo_2ply_multi_tpu_torch.oracle.sampling import sample_cases
+
+    rng = np.random.default_rng(seed)
+    data = np.zeros((n_wide, 52), np.int8)
+    player = rng.integers(0, 2, n_wide)
+    for r in range(n_wide):
+        p, perm = player[r], rng.permutation(24)
+        m = int(rng.integers(8, 15))
+        np.add.at(data[r], 24 * p + perm[:m], 1)
+        np.add.at(data[r], 24 * p + rng.choice(perm[:m], size=15 - m), 1)
+        np.add.at(data[r], 24 * (1 - p) + rng.choice(perm[m:m + int(rng.integers(2, 5))],
+                                                       size=15), 1)
+    pairs = np.array([(a, b) for a in range(1, 7) for b in range(1, 7) if a != b])
+    dice = pairs[rng.integers(0, 30, n_wide)]
+    boards, players, rolls = sample_cases(seed, n - n_wide)
+    sampled = np.array([list(b[0]) + list(b[1]) + list(b[2]) + list(b[3]) for b in boards],
+                       dtype=np.int8)
+    as_t = lambda x: torch.as_tensor(np.asarray(x), device=dev)
+    return (Board(as_t(np.concatenate([data, sampled]))),
+            as_t(np.concatenate([player, np.asarray(players)])).to(torch.int32),
+            as_t(np.concatenate([dice, np.asarray(rolls)])).to(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [4096, 1024])
+@pytest.mark.parametrize("call", ["legal_moves_split", "legal_moves"])
+def test_two_tier_tail_through_the_kernel_equals_the_plain_route(batch, call, monkeypatch):
+    """``legal_moves_split`` and the merged ``legal_moves`` at ``fast()``
+    widths, both tiers through the kernel (exactly two launches a
+    ``_nd_two_tier`` call), byte-equal in every output tensor, invalid
+    slots included, to the same call with the plain ``_nd_tail`` swapped in
+    (no launch); with more wide games than tier 2's sub-batch holds, so
+    that its overflow branch runs."""
+    from mlp_ppo_2ply_multi_tpu_torch.core.config import MoveGenConfig
+    from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
+    from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
+
+    dev = _card()
+    cfg = MoveGenConfig.fast()
+    board, player, dice = _wide_mix(batch, batch // 4, batch + 20, dev)
+    fn = getattr(movegen2, call)
+    per_call, two_tier = [], movegen2._nd_two_tier
+
+    def counted(*a, **k):
+        before = nd_tail.KERNEL.launches
+        out = two_tier(*a, **k)
+        per_call.append(nd_tail.KERNEL.launches - before)
+        return out
+
+    monkeypatch.setattr(movegen2, "_nd_two_tier", counted)
+    got = fn(board, player, dice, cfg)
+    monkeypatch.setattr(nd_tail, "nd_tail_fused", nd_tail.nd_tail_plain)
+    want = fn(board, player, dice, cfg)
+    torch.cuda.synchronize()
+    assert per_call == [2, 0]
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = getattr(a, "data", a), getattr(b, "data", b)
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (call, i)
+    _, _, valid, _, _ = movegen2._nd_candidates(board, player.long(), dice.long())
+    wide = (dice[:, 0] != dice[:, 1]) & (valid.sum(-1) > cfg.nd_tier)
+    assert int(wide.sum()) > batch // cfg.nd_wide_div  # past the sub-batch
+    assert bool(got.overflow[wide].any())
+
+
+@pytest.mark.gpu
+def test_a_tier_wider_than_the_kernel_raises_on_a_card():
+    """The route takes B2 for every signature-dedup pass, whatever its
+    width: a tier wider than ``MAX_K`` raises on a card, as the single pass
+    does, and never falls back to the plain tail."""
+    import dataclasses
+
+    from mlp_ppo_2ply_multi_tpu_torch.core.config import MoveGenConfig
+    from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
+    from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
+
+    dev = _card()
+    board, player, dice = _wide_mix(256, 64, 31, dev)
+    wide = dataclasses.replace(MoveGenConfig.fast(), nd_dedup_k=nd_tail.MAX_K + 24)
+    with pytest.raises(ValueError, match="K <="):
+        movegen2.legal_moves_split(board, player, dice, wide)
+    single = dataclasses.replace(MoveGenConfig(), nd_dedup_k=nd_tail.MAX_K + 24)
+    with pytest.raises(ValueError, match="K <="):
+        movegen2.legal_moves(board, player, dice, single)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call, cfg_name, plain_per_call", [
+    ("legal_moves_split", "fast", 2),  # the two tiers
+    ("legal_moves", "default", 1),  # the single pass
+])
+def test_the_gram_dedup_runs_the_plain_tail_and_counts_it(call, cfg_name, plain_per_call,
+                                                           monkeypatch):
+    """With ``nd_sig_dedup=False`` every pass runs the plain ``_nd_tail`` on
+    the card (B2 dedups by signature only): no launch, and each pass counts
+    as the tracer's ``nd_tail_plain`` in the update's record."""
+    import dataclasses
+
+    from mlp_ppo_2ply_multi_tpu_torch.core.config import MoveGenConfig
+    from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
+    from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
+    from mlp_ppo_2ply_multi_tpu_torch.utils import profiling as P
+
+    dev = _card()
+    base = MoveGenConfig.fast() if cfg_name == "fast" else MoveGenConfig()
+    cfg = dataclasses.replace(base, nd_sig_dedup=False)
+    board, player, dice = _wide_mix(256, 64, 32, dev)
+    monkeypatch.setenv(P.TRACE_ENV, "1")
+    P.TRACER.reset()
+    launches = nd_tail.KERNEL.launches
+    P.new_update()
+    with P.scope("rollout", span=True):
+        getattr(movegen2, call)(board, player, dice, cfg)
+    P.trace_flush()
+    torch.cuda.synchronize()
+    (rec,) = P.trace_records()
+    P.TRACER.reset()
+    assert nd_tail.KERNEL.launches == launches
+    assert rec["counters"].get("nd_tail_kernel_launches") == 0
+    assert rec["counters"].get("nd_tail_plain") == plain_per_call
+
+
+# the attribution check, in an interpreter of its own: late in a long test
+# process torch.profiler has been seen to collect no device event at all
+_ATTRIBUTION = """
+import sys, torch
+from torch.profiler import ProfilerActivity, profile
+from tests.test_torch_kernel_gpu import _wide_mix
+from mlp_ppo_2ply_multi_tpu_torch.core.config import MoveGenConfig
+from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
+from mlp_ppo_2ply_multi_tpu_torch.utils import profiling
+call, cfg = sys.argv[1], MoveGenConfig.fast() if sys.argv[2] == "fast" else MoveGenConfig()
+board, player, dice = _wide_mix(1024, 128, 33, torch.device("cuda"))
+run = lambda: getattr(movegen2, call)(board, player, dice, cfg)
+run()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    run()
+    torch.cuda.synchronize()
+events = prof.events()
+tags = []
+for e in events:
+    for k in getattr(e, "kernels", None) or []:
+        if "nd_tail_kernel" in k.name:
+            chain, p = [], e
+            while p is not None:
+                chain.append(p.name)
+                p = p.cpu_parent
+            tags.append(profiling.stage_tag(chain[::-1], k.name))
+traced = sum("nd_tail_kernel" in e.name for e in profiling.device_events(events))
+print(repr((tags, traced)))
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call, cfg_name, want", [
+    ("legal_moves_split", "fast", ["nd_tail_t1", "nd_tail_t2"]),
+    ("legal_moves", "fast", ["nd_tail_t1", "nd_tail_t2"]),
+    ("legal_moves", "default", ["nd_tail"]),  # MoveGenConfig(): the single pass
+])
+def test_the_eager_attribution_sees_b2_in_its_pass_scopes(call, cfg_name, want):
+    """B2 launches inside its dispatcher op, so torch.profiler links each of
+    its kernels to that op, and ``stage_tag`` puts it under the scope of its
+    pass (the innermost of the tag): every B2 kernel of the trace is
+    attributed, in launch order."""
+    import ast
+    import os
+    import subprocess
+    import sys
+
+    _card()
+    root = pathlib.Path(__file__).resolve().parent.parent
+    run = subprocess.run([sys.executable, "-c", _ATTRIBUTION, call, cfg_name], cwd=root,
+                         capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(root)})
+    assert run.returncode == 0, run.stderr[-3000:]
+    tags, traced = ast.literal_eval(run.stdout.strip().splitlines()[-1])
+    assert [t.split("/")[-1] for t in tags] == want and traced == len(want), (tags, traced)
 
 
 @pytest.mark.gpu
