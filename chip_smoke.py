@@ -719,7 +719,7 @@ def phase_kernel_vs_plain(P, params, real_inputs, dev, gen, card, random_cases=T
 
 
 def phase_main_path(P, params, state, cfg, dev, gen, card):
-    R, fv, Bd = P["rollout"], P["fv"], P["board"]
+    R, Bd = P["rollout"], P["board"]
     temp = cfg.train.initial_temperature
     for _ in range(WARMUP):
         state, _ = R.rollout_step(params, state, temp, cfg, True, gen=gen, device=dev)
@@ -727,8 +727,8 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
     torch.cuda.reset_peak_memory_stats(dev)
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
-    fv.KERNEL.launches = P["dd"].KERNEL.launches = P["nd"].KERNEL.launches = 0
     P["stamp"].KERNEL.launches = 0  # the kernels line counts the stamps from here on
+    since = P["profiling"].kernel_launches()
     t0 = time.perf_counter()
     ev0.record()
     ts = []
@@ -738,8 +738,7 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
     ev1.record()
     _sync(dev)
     wall = time.perf_counter() - t0
-    launches, dd_launches = fv.KERNEL.launches, P["dd"].KERNEL.launches
-    nd_launches = P["nd"].KERNEL.launches
+    launches, nd_launches, dd_launches = _launched(P, since).values()
     dev_ms = ev0.elapsed_time(ev1)
     traj = R.Transition(*(torch.stack(xs) for xs in zip(*ts)))
     b = state.player.shape[0]
@@ -1112,15 +1111,14 @@ def phase_twoply_kernels_vs_plain(P, params, nd_seen, fv_seen, dev, gen, card):
 
 
 def phase_twoply_main(P, params, state, cfg, dev, gen, card):
-    fv, nd, Bd = P["fv"], P["nd"], P["board"]
-    R = P["rollout"]
+    R, Bd = P["rollout"], P["board"]
     temp = cfg.train.initial_temperature
     state = twoply_steps(P, params, state, cfg, dev, gen, WARMUP_2PLY)
     _sync(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
-    fv.KERNEL.launches = nd.KERNEL.launches = P["dd"].KERNEL.launches = 0
+    since = P["profiling"].kernel_launches()
     t0 = time.perf_counter()
     ev0.record()
     ts = []
@@ -1130,8 +1128,7 @@ def phase_twoply_main(P, params, state, cfg, dev, gen, card):
     ev1.record()
     _sync(dev)
     wall = time.perf_counter() - t0
-    fv_launches, nd_launches = fv.KERNEL.launches, nd.KERNEL.launches
-    dd_launches = P["dd"].KERNEL.launches
+    fv_launches, nd_launches, dd_launches = _launched(P, since).values()
     dev_ms = ev0.elapsed_time(ev1)
     traj = R.Transition(*(torch.stack(xs) for xs in zip(*ts)))
     b = state.player.shape[0]
@@ -1385,7 +1382,7 @@ def run_train(P, flags, dev, tag, card):
     ``rollout_chunked``; the first one captures its graph) and td.update
     are timed (synchronised around each) and the final checkpoint's state
     and generator are kept."""
-    td, fv, nd, R = P["td"], P["fv"], P["nd"], P["rollout"]
+    td, R = P["td"], P["rollout"]
     rollout_fn = "rollout" if "sync" in flags else "rollout_chunked"
     learn_ms, roll_ms, saved = [], [], {}
     real_save = P["ckpt"].save
@@ -1414,13 +1411,12 @@ def run_train(P, flags, dev, tag, card):
         with _Swap(td, "update", timed(td.update, learn_ms)), \
                 _Swap(R, rollout_fn, timed(getattr(R, rollout_fn), roll_ms)), \
                 _Swap(P["ckpt"], "save", keep_save):
-            fv.KERNEL.launches = nd.KERNEL.launches = P["dd"].KERNEL.launches = 0
+            since = P["profiling"].kernel_launches()
             t0 = time.perf_counter()
             rc = P["train"].main(argv)
             _sync(dev)
             wall = time.perf_counter() - t0
-            launches = {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches,
-                        "dd_expand": P["dd"].KERNEL.launches}
+            launches = _launched(P, since)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         (run,) = Path(tmp, "runs").iterdir()
         recs = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
@@ -1604,13 +1600,13 @@ def eager_and_graphed(P, params, cfg, batch, steps, chunk, seed, dev):
     """``rollout_loop`` and ``rollout_chunked`` from one state and one
     generator seed; the graphed run's launches of each kernel, counted from
     0 just before it and read just after."""
-    R, VE, fv, nd, dd = P["rollout"], P["vec_env"], P["fv"], P["nd"], P["dd"]
+    R, VE = P["rollout"], P["vec_env"]
     temp = cfg.train.initial_temperature
     out = []
     for graphed in (False, True):
         gen = torch.Generator(device=dev).manual_seed(seed)
         state = VE.reset(batch, gen, device=dev)
-        fv.KERNEL.launches = nd.KERNEL.launches = dd.KERNEL.launches = 0
+        since = P["profiling"].kernel_launches()
         if graphed:
             out.append(R.rollout_chunked(params, state, temp, cfg, steps, chunk=chunk,
                                          gen=gen, device=dev))
@@ -1618,8 +1614,14 @@ def eager_and_graphed(P, params, cfg, batch, steps, chunk, seed, dev):
             out.append(R.rollout_loop(params, state, temp, cfg, steps, True, gen=gen,
                                       device=dev))
         _sync(dev)
-    return out[0], out[1], {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches,
-                            "dd_expand": dd.KERNEL.launches}
+    return out[0], out[1], _launched(P, since)
+
+
+def _launched(P, since, names=("fused_value", "nd_tail", "dd_expand")):
+    """Each kernel's launches since the launch registry's snapshot ``since``
+    (``profiling.kernel_launches``), by name."""
+    now = P["profiling"].kernel_launches()
+    return {n: now.get(n, 0) - since.get(n, 0) for n in names}
 
 
 def _gate(launches, want, what):
@@ -1722,7 +1724,7 @@ def phase_graph_times(P, dev, card):
     it, card synchronised), its launches gated, the device's busy time
     under torch.profiler in a third call, and the graph's replays alone
     queued behind a spin kernel (CUDA events)."""
-    R, VE, fv, nd, dd = P["rollout"], P["vec_env"], P["fv"], P["nd"], P["dd"]
+    R, VE = P["rollout"], P["vec_env"]
     params = P["value_net"].load_checkpoint(str(CKPT), device=dev)
     out = {}
     for name, cfg, batch, steps, chunks, per_step in (
@@ -1743,14 +1745,13 @@ def phase_graph_times(P, dev, card):
             g = _last_graph(P)
             info = dict(g.info)
             _sync(dev)
-            fv.KERNEL.launches = nd.KERNEL.launches = dd.KERNEL.launches = 0
+            since = P["profiling"].kernel_launches()
             t0 = time.perf_counter()
             state, traj = R.rollout_chunked(params, state, temp, cfg, steps, chunk=chunk,
                                             gen=gen, device=dev)
             _sync(dev)
             wall_ms = (time.perf_counter() - t0) * 1e3
-            launches = {"fused_value": fv.KERNEL.launches, "nd_tail": nd.KERNEL.launches,
-                        "dd_expand": dd.KERNEL.launches}
+            launches = _launched(P, since)
             _gate(launches, {k: n * steps for k, n in per_step.items()},
                   f"graphed {name} chunk {chunk}")
             busy, prof_ms = _graph_busy(lambda: R.rollout_chunked(

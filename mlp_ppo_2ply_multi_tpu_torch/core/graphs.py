@@ -11,8 +11,6 @@ from typing import Callable, Dict, Iterator, Sequence, Tuple
 
 import torch
 
-from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import GraphLaunches
-from mlp_ppo_2ply_multi_tpu_torch.ops.fused_value import packing_once_per_capture
 from mlp_ppo_2ply_multi_tpu_torch.utils import profiling
 
 
@@ -52,10 +50,11 @@ class StampedGraph(torch.cuda.CUDAGraph):
 
 
 def capture_graph(body: Callable[[], None], dev: torch.device, what: str
-                  ) -> Tuple[torch.cuda.CUDAGraph, GraphLaunches, Dict[str, object]]:
+                  ) -> Tuple[torch.cuda.CUDAGraph, profiling.GraphLaunches, Dict[str, object]]:
     """``body`` captured as one CUDA graph on the device's capture stream,
-    with every synchronising op made to raise and fused_value's operands
-    packed once (``packing_once_per_capture``). Run a warm-up of the same
+    with every synchronising op made to raise and each kernel's
+    ``per_capture`` context entered (``GraphLaunches``: fused_value's
+    operands packed once). Run a warm-up of the same
     work on that stream first. Returns (graph, the kernel launches it holds,
     info: the capture + instantiate seconds, the bytes its memory pool
     holds and the launches a replay makes by kernel). A failed capture
@@ -69,9 +68,9 @@ def capture_graph(body: Callable[[], None], dev: torch.device, what: str
         mem0 = torch.cuda.memory_stats(dev)
         t0 = time.perf_counter()
         graph = StampedGraph()
-        launches = GraphLaunches()
+        launches = profiling.GraphLaunches()
         try:
-            with launches, profiling.capturing() as graph.stamps, packing_once_per_capture(), \
+            with launches, profiling.capturing() as graph.stamps, \
                     torch.cuda.graph(graph, stream=stream):
                 with syncs_raise():
                     body()
@@ -88,7 +87,7 @@ def capture_graph(body: Callable[[], None], dev: torch.device, what: str
             capture_s=seconds,
             pool_reserved_bytes=delta("reserved_bytes.all.current"),
             pool_allocated_bytes=delta("allocated_bytes.all.current"),
-            launches_per_replay={k.src.stem: n for k, n in launches.per_replay.items()},
+            launches_per_replay={k.name: n for k, n in launches.per_replay.items()},
         )
         attrs.update(capture_s=info["capture_s"], pool_reserved_bytes=info["pool_reserved_bytes"])
     return graph, launches, info

@@ -18,16 +18,16 @@ Two implementations of one function, bit-identical:
 * ``nd_tail_plain`` — plain PyTorch (``movegen2._nd_tail``), the CPU path
   and on the card the kernel's oracle;
 * the CUDA kernel ``csrc/nd_tail.cu`` (sm_90a), built with ``nvcc`` at first
-  use (``ops/_cuda_build.py``), bound with ``ctypes`` and launched inside
-  the dispatcher op ``mlp_ppo_torch::nd_tail``, so that a profile links its
-  device time to the scopes around the call.
+  use and launched inside the dispatcher op ``mlp_ppo_torch::nd_tail``
+  (``ops/_cuda_build.py``), so that a profile links its device time to the
+  scopes around the call.
 
 ``nd_tail_fused`` routes a CPU tensor to the plain version and a CUDA tensor
 to the kernel, and raises on anything else: the kernel takes widths up to
 ``MAX_K``, and no route falls back to the plain version on a card.
 ``KERNEL.launches`` counts the
-launches that ran, eager and replayed in graphs; the tracer reads it as each
-update opens and closes (``nd_tail_kernel_launches``), and counts the plain
+launches that ran, eager and replayed in graphs; the tracer records its
+growth by update (``nd_tail_kernel_launches``), and counts the plain
 version's calls on a card with the Gram dedup's plain tail
 (``nd_tail_plain``).
 """
@@ -69,7 +69,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         raise RuntimeError(f"nd_tail.cu takes K <= {lib.nd_tail_max_k()}, MAX_K is {MAX_K}")
 
 
-KERNEL = CudaKernel(_SRC, _bind)
+KERNEL = CudaKernel(
+    _SRC, _bind,
+    "(Tensor valid, Tensor b1a, Tensor b1b, Tensor b0, Tensor player, Tensor d_hi, "
+    "Tensor d_lo, Tensor(a!) after, Tensor(b!) keep, Tensor(c!) n_pre, Tensor(d!) pct, "
+    "Tensor(e!) kpair, int k, int a_max) -> ()",
+    # the twelve tensors' addresses, then the rows, k and a_max
+    lambda *a: (*(t.data_ptr() for t in a[:12]), a[0].shape[0], *a[12:]),
+    counter="nd_tail_kernel_launches")
 
 
 def _check(valid, b1a, b1b, b0, player, d_hi, d_lo) -> None:
@@ -131,42 +138,6 @@ def kernel_operands(valid, b1a, b1b, b0, player, d_hi, d_lo, K: int):
     )
 
 
-def _launch(valid, b1a, b1b, b0, player, d_hi, d_lo, after, keep, n_pre, pct, kpair,
-            K: int, a_max: int) -> None:
-    """The launch op's CUDA body: the ctypes call on the current stream."""
-    lib = KERNEL.load()
-    dev = valid.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.nd_tail_launch(
-            valid.data_ptr(), b1a.data_ptr(), b1b.data_ptr(), b0.data_ptr(),
-            player.data_ptr(), d_hi.data_ptr(), d_lo.data_ptr(),
-            after.data_ptr(), keep.data_ptr(), n_pre.data_ptr(), pct.data_ptr(),
-            kpair.data_ptr(), valid.shape[0], K, a_max, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"nd_tail kernel launch failed: CUDA error {rc}")
-
-
-_LIBRARY = []  # the dispatcher library that holds the launch op, made at the first launch
-
-
-def _launch_op():
-    """The launch as the dispatcher op ``mlp_ppo_torch::nd_tail`` (defined at
-    the first launch, for CUDA tensors only). torch.profiler links a kernel
-    to the op that launched it, and so to the scopes around that op; a
-    ctypes launch made outside any op is linked to no event, and its device
-    time falls outside every stage."""
-    if not _LIBRARY:
-        lib = torch.library.Library("mlp_ppo_torch", "FRAGMENT")
-        lib.define("nd_tail(Tensor valid, Tensor b1a, Tensor b1b, Tensor b0, Tensor player, "
-                   "Tensor d_hi, Tensor d_lo, Tensor(a!) after, Tensor(b!) keep, "
-                   "Tensor(c!) n_pre, Tensor(d!) pct, Tensor(e!) kpair, int k, int a_max) -> ()")
-        lib.impl("nd_tail", _launch, "CUDA")
-        _LIBRARY.append(lib)
-    return torch.ops.mlp_ppo_torch.nd_tail
-
-
 def launch_kernel(valid, b1a, b1b, b0, player, d_hi, d_lo, K: int, a_max: int) -> Outputs:
     """Launch the CUDA kernel on operands from ``kernel_operands`` on the
     current stream, inside the op ``mlp_ppo_torch::nd_tail``. Counts the
@@ -183,11 +154,8 @@ def launch_kernel(valid, b1a, b1b, b0, player, d_hi, d_lo, K: int, a_max: int) -
     pct = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return after, keep, n_pre, pct, kpair
-    # asynchronous: the caching allocator reuses the operands' memory only in
-    # order on this stream, so temporaries may be freed when this returns
-    _launch_op()(valid, b1a, b1b, b0, player, d_hi, d_lo, after, keep, n_pre, pct, kpair,
-                 K, a_max)
-    KERNEL.count_launch()
+    KERNEL.launch(valid, b1a, b1b, b0, player, d_hi, d_lo, after, keep, n_pre, pct, kpair,
+                  K, a_max)
     return after, keep, n_pre, pct, kpair
 
 

@@ -3,8 +3,9 @@
 ``engine.movegen2.enumerate_doubles`` on a CUDA tensor runs here: the root
 slot table, the three level expansions, the forced shorts, the level
 gating, the Q7 rank-capped compaction and the merge, for every game, in one
-launch of ``csrc/dd_expand.cu`` (sm_90a; built with ``nvcc`` at first use by
-``ops/_cuda_build.py`` and bound with ``ctypes``). It replaces no TPU
+launch of ``csrc/dd_expand.cu`` (sm_90a; built with ``nvcc`` at first use
+and launched inside the dispatcher op ``mlp_ppo_torch::dd_expand`` by
+``ops/_cuda_build.py``). It replaces no TPU
 kernel: JAX runs the enumeration as plain XLA. Its frontier stays in shared
 memory; the outputs are the only device memory it writes.
 
@@ -19,15 +20,14 @@ tensor, invalid entries included:
 threads a game, games a block, shared memory), from the widths and the
 game count alone; ``bound`` gives the kernel's least time by its bytes, and
 ``utils.cost`` counts a call by that formula. ``KERNEL.launches`` counts
-the launches that ran, eager and replayed in graphs; the tracer reads it
-as each update opens and closes, and records the difference as
-``dd_kernel_launches``.
+the launches that ran, eager and replayed in graphs; the tracer records
+its growth by update as ``dd_kernel_launches``.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -66,7 +66,16 @@ def _bind(lib: ctypes.CDLL) -> None:
                            "ops/dd_expand.py::game_bytes")
 
 
-KERNEL = CudaKernel(_SRC, _bind)
+# ``plan`` is (w1, w2, w3, w4, a_max, team, games)
+KERNEL = CudaKernel(
+    _SRC, _bind,
+    "(Tensor board, Tensor player, Tensor die, Tensor(a!) boards, Tensor(b!) valid, "
+    "Tensor(c!) count, Tensor(d!) overflow, int[] plan) -> ()",
+    lambda board, player, die, boards, valid, count, overflow, plan: (
+        board.data_ptr(), board.stride(0), player.data_ptr(), player.stride(0),
+        die.data_ptr(), die.stride(0), boards.data_ptr(), valid.data_ptr(), count.data_ptr(),
+        overflow.data_ptr(), board.shape[0], *plan),
+    counter="dd_kernel_launches")
 
 
 def widths_of(cfg) -> Widths:
@@ -145,48 +154,14 @@ def _rows(x, n: int, dev: torch.device) -> torch.Tensor:
     return torch.broadcast_to(t, (n,))
 
 
-def _launch(board: torch.Tensor, player: torch.Tensor, die: torch.Tensor, boards: torch.Tensor,
-            valid: torch.Tensor, count: torch.Tensor, overflow: torch.Tensor,
-            plan_: List[int]) -> None:
-    """The launch op's CUDA body: the ctypes call on the current stream;
-    ``plan_`` is (w1, w2, w3, w4, a_max, team, games)."""
-    lib = KERNEL.load()
-    dev = board.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dd_expand_launch(
-            board.data_ptr(), board.stride(0), player.data_ptr(), player.stride(0),
-            die.data_ptr(), die.stride(0), boards.data_ptr(), valid.data_ptr(),
-            count.data_ptr(), overflow.data_ptr(), board.shape[0], *plan_, stream)
-    if rc != 0:
-        raise RuntimeError(f"dd_expand kernel launch failed: CUDA error {rc}")
-
-
-_LIBRARY = []  # the dispatcher library that holds the launch op, made at the first launch
-
-
-def _launch_op():
-    """The launch as the dispatcher op ``mlp_ppo_torch::dd_expand`` (defined
-    at the first launch, for CUDA tensors only). torch.profiler links a
-    kernel to the op that launched it, and so to the scopes around that op;
-    a ctypes launch made outside any op is linked to no event, and its
-    device time falls outside every stage."""
-    if not _LIBRARY:
-        lib = torch.library.Library("mlp_ppo_torch", "FRAGMENT")
-        lib.define("dd_expand(Tensor board, Tensor player, Tensor die, Tensor(a!) boards, "
-                   "Tensor(b!) valid, Tensor(c!) count, Tensor(d!) overflow, int[] plan) -> ()")
-        lib.impl("dd_expand", _launch, "CUDA")
-        _LIBRARY.append(lib)
-    return torch.ops.mlp_ppo_torch.dd_expand
-
-
 def launch_kernel(board: torch.Tensor, player, die, widths: Widths
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on the current stream: board int8 [n, 52] on a
-    card, player and die integers broadcast to [n] (die in 1..6). Returns
-    (boards int8 [n, a_max, 52], valid bool [n, a_max], count int32 [n],
-    overflow bool [n]). Raises on operands it does not take; counts the
-    launch (``CudaKernel.count_launch``)."""
+    """Launch the CUDA kernel on the current stream, inside the op
+    ``mlp_ppo_torch::dd_expand``: board int8 [n, 52] on a card, player and
+    die integers broadcast to [n] (die in 1..6). Returns (boards int8
+    [n, a_max, 52], valid bool [n, a_max], count int32 [n], overflow bool
+    [n]). Raises on operands it does not take; counts the launch
+    (``CudaKernel.count_launch``)."""
     if not isinstance(board, torch.Tensor) or board.dtype != torch.int8 or board.dim() != 2 \
             or board.shape[1] != N_CELLS:
         raise ValueError(f"board must be int8 [n, {N_CELLS}], got "
@@ -206,7 +181,6 @@ def launch_kernel(board: torch.Tensor, player, die, widths: Widths
     overflow = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:
         return boards, valid, count, overflow
-    _launch_op()(board, player, die, boards, valid, count, overflow,
-                 [*map(int, widths), p["team"], p["games"]])
-    KERNEL.count_launch()
+    KERNEL.launch(board, player, die, boards, valid, count, overflow,
+                  [*map(int, widths), p["team"], p["games"]])
     return boards, valid, count, overflow

@@ -17,8 +17,9 @@ Two implementations of one function, with the TPU kernel's rounding points
   kernel's oracle. Its matmuls run in full f32: TF32 must stay off
   (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
 * the CUDA kernel ``csrc/fused_value.cu`` (sm_90a; layer 1 on the tensor
-  cores by wgmma), built with ``nvcc`` at first use (``ops/_cuda_build.py``)
-  and bound with ``ctypes``. Its parameter operands (G in the layout its
+  cores by wgmma), built with ``nvcc`` at first use and launched inside the
+  dispatcher op ``mlp_ppo_torch::fused_value`` (``ops/_cuda_build.py``).
+  Its parameter operands (G in the layout its
   shared-memory descriptor reads, ``pack_g``/``g_index_map``, and the
   bias/head vector) are made once per parameter set (``packed_params``).
 
@@ -139,9 +140,6 @@ def _bind(lib: ctypes.CDLL) -> None:
         raise RuntimeError(f"fused_value.cu is built for hidden={lib.fused_value_hidden()}")
 
 
-KERNEL = CudaKernel(_SRC, _bind)
-
-
 def g_index_map(hidden: int = HIDDEN, k: int = N_REP) -> torch.Tensor:
     """int64 [k * hidden]: entry i is the flat index into G [k, hidden]
     (k = 208 by default) of the i-th bf16 of the packed G, in the order the
@@ -203,6 +201,15 @@ def packing_once_per_capture() -> Iterator[None]:
         yield
     finally:
         _CAPTURE_PACKED = None
+
+
+KERNEL = CudaKernel(
+    _SRC, _bind,
+    "(Tensor boards, Tensor flag, Tensor gpack, Tensor head, Tensor(a!) out) -> ()",
+    lambda boards, f, gpack, head, out: (
+        boards.data_ptr(), f.data_ptr(), gpack.data_ptr(), head.data_ptr(), out.data_ptr(),
+        boards.numel() // N_CELLS),
+    per_capture=packing_once_per_capture)
 
 
 def packed_params(params: Dict[str, torch.Tensor], pack=pack_params) -> Tuple[torch.Tensor, ...]:
@@ -268,9 +275,9 @@ def kernel_operands(boards_data, flag, params) -> Tuple[torch.Tensor, ...]:
 
 def launch_kernel(boards, f, gpack, head) -> torch.Tensor:
     """Launch the CUDA kernel on operands from ``kernel_operands`` on the
-    current stream; f32 [...] out. Counts the launch
-    (``CudaKernel.count_launch``: inside a CUDA graph capture it counts
-    once per replay)."""
+    current stream, inside the op ``mlp_ppo_torch::fused_value``; f32 [...]
+    out. Counts the launch (``CudaKernel.count_launch``: inside a CUDA graph
+    capture it counts once per replay)."""
     n = boards.numel() // N_CELLS
     ok = (
         boards.is_cuda and boards.dtype == torch.int8 and f.dtype == torch.int8
@@ -281,22 +288,10 @@ def launch_kernel(boards, f, gpack, head) -> torch.Tensor:
     )
     if not ok:
         raise ValueError("launch_kernel takes operands from kernel_operands")
-    lib = KERNEL.load()
     out = torch.empty(boards.shape[:-1], dtype=torch.float32, device=boards.device)
     if n == 0:
         return out
-    # The launch is asynchronous: temporaries of the caller may be freed when
-    # this returns, which is safe because the caching allocator reuses their
-    # memory only in order on this same stream.
-    with torch.cuda.device(boards.device):
-        stream = torch.cuda.current_stream(boards.device).cuda_stream
-        rc = lib.fused_value_launch(
-            boards.data_ptr(), f.data_ptr(), gpack.data_ptr(), head.data_ptr(),
-            out.data_ptr(), n, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_value kernel launch failed: CUDA error {rc}")
-    KERNEL.count_launch()
+    KERNEL.launch(boards, f, gpack, head, out)
     return out
 
 

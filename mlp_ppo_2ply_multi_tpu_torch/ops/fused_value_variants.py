@@ -88,30 +88,26 @@ def main() -> int:
     ops = fv.kernel_operands(b, flag, params)
     want = fv.fused_value_plain(b, flag, params)
 
-    kernels = {"kept": CudaKernel(fv._SRC, fv._bind)}
-    kernels.update({name: CudaKernel(variant_source(name), fv._bind) for name in EDITS})
+    # each variant's library, launched by its raw C call (not the kept op)
+    kernels = {"kept": CudaKernel(fv._SRC, fv._bind, name="fused_value")}
+    kernels.update({name: CudaKernel(variant_source(name), fv._bind, name="fused_value")
+                    for name in EDITS})
     out = torch.empty(ROWS, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def launch(lib):
-        rc = lib.fused_value_launch(*(t.data_ptr() for t in ops), out.data_ptr(), ROWS, stream)
-        if rc != 0:
-            raise RuntimeError(f"launch failed: CUDA error {rc}")
+    c_args = (*(t.data_ptr() for t in ops), out.data_ptr(), ROWS)
 
     err = {}
     for name, k in kernels.items():
-        lib = k.load()
-        launch(lib)
+        k.call(dev, c_args)
         torch.cuda.synchronize(dev)
         err[name] = float((out - want).abs().max())
 
-    def time_ms(lib, iters=30):
+    def time_ms(k, iters=30):
         for _ in range(3):
-            launch(lib)
+            k.call(dev, c_args)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         for _ in range(iters):
-            launch(lib)
+            k.call(dev, c_args)
         e1.record()
         torch.cuda.synchronize(dev)
         return e0.elapsed_time(e1) / iters
@@ -120,7 +116,7 @@ def main() -> int:
     order = names + names[::-1]
     times = {name: [] for name in names}
     for name in order:
-        times[name].append(time_ms(kernels[name].lib))
+        times[name].append(time_ms(kernels[name]))
     for name in names:
         print(json.dumps(dict(
             variant=name, rows=ROWS, ms=times[name], max_abs_err=err[name],

@@ -16,8 +16,8 @@ and the equity in f32.
 * ``mlp_value_plain`` -- plain PyTorch: the CPU path, and on the card the
   kernel's oracle. TF32 must stay off (PyTorch's default for matmuls).
 * the CUDA kernel ``csrc/mlp_value.cu`` (sm_90a; every layer on the tensor
-  cores by wgmma), built with ``nvcc`` at first use (``ops/_cuda_build.py``)
-  and launched inside the dispatcher op ``mlp_ppo_torch::mlp_value``, so
+  cores by wgmma), built with ``nvcc`` at first use and launched inside the
+  dispatcher op ``mlp_ppo_torch::mlp_value`` (``ops/_cuda_build.py``), so
   torch.profiler links it to the scopes around its call. Its weight operand
   is every layer cut into stages of 64 output columns (``STAGES``), each
   laid out as its wgmma descriptor reads it (``pack_weights``), made once
@@ -30,9 +30,11 @@ it was asked to value to ``rows_needed`` and the rows it computed (the
 kernel: its tiles of 128 rows, partial ones included) to ``rows_computed``,
 two int64 counters on the boards' device (``counters``): the kernel adds
 them by atomics, inside CUDA graphs too, and the tracer copies them out
-without a wait as each update closes. ``KERNEL.launches`` counts the
-launches that ran, eager and replayed. ``bound`` is the least time of the
-function on the rows a step needs; ``utils.cost`` counts a call by it.
+without a wait as each update closes (``KERNEL``'s device counters,
+``mlp_rows_needed`` and ``mlp_rows_computed``). ``KERNEL.launches`` counts
+the launches that ran, eager and replayed (``mlp_kernel_launches``).
+``bound`` is the least time of the function on the rows a step needs;
+``utils.cost`` counts a call by it.
 """
 from __future__ import annotations
 
@@ -191,38 +193,16 @@ def _bind(lib: ctypes.CDLL) -> None:
                            f"the packing makes {sum(STAGE_BYTES)}")
 
 
-KERNEL = CudaKernel(_SRC, _bind)
-
-
-def _launch(boards: torch.Tensor, flag: torch.Tensor, valid: torch.Tensor, wpack: torch.Tensor,
-            head: torch.Tensor, out: torch.Tensor, count: torch.Tensor, has_valid: bool) -> None:
-    """The launch op's CUDA body: the ctypes call on the current stream."""
-    lib = KERNEL.load()
-    dev = boards.device
-    n = boards.numel() // N_CELLS
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mlp_value_launch(
-            boards.data_ptr(), flag.data_ptr(), valid.data_ptr() if has_valid else None,
-            wpack.data_ptr(), head.data_ptr(), out.data_ptr(), count.data_ptr(), n, stream)
-    if rc != 0:
-        raise RuntimeError(f"mlp_value kernel launch failed: CUDA error {rc}")
-
-
-_LIBRARY = []  # the dispatcher library that holds the launch op, made at the first launch
-
-
-def _launch_op():
-    """The launch as the dispatcher op ``mlp_ppo_torch::mlp_value`` (defined
-    at the first launch, for CUDA tensors only): torch.profiler links a
-    kernel to the op that launched it, and so to the scopes around it."""
-    if not _LIBRARY:
-        lib = torch.library.Library("mlp_ppo_torch", "FRAGMENT")
-        lib.define("mlp_value(Tensor boards, Tensor flag, Tensor valid, Tensor wpack, "
-                   "Tensor head, Tensor(a!) out, Tensor(b!) count, bool has_valid) -> ()")
-        lib.impl("mlp_value", _launch, "CUDA")
-        _LIBRARY.append(lib)
-    return torch.ops.mlp_ppo_torch.mlp_value
+KERNEL = CudaKernel(
+    _SRC, _bind,
+    "(Tensor boards, Tensor flag, Tensor valid, Tensor wpack, Tensor head, Tensor(a!) out, "
+    "Tensor(b!) count, bool has_valid) -> ()",
+    lambda boards, flag, valid, wpack, head, out, count, has_valid: (
+        boards.data_ptr(), flag.data_ptr(), valid.data_ptr() if has_valid else None,
+        wpack.data_ptr(), head.data_ptr(), out.data_ptr(), count.data_ptr(),
+        boards.numel() // N_CELLS),
+    counter="mlp_kernel_launches",
+    device_counters=(("mlp_rows_needed", "mlp_rows_computed"), counter_tensors))
 
 
 def kernel_operands(boards_data, flag, params, valid=None):
@@ -249,7 +229,8 @@ def kernel_operands(boards_data, flag, params, valid=None):
 
 def launch_kernel(boards, f, valid, wpack, head) -> torch.Tensor:
     """Launch the CUDA kernel on operands from ``kernel_operands`` on the
-    current stream; f32 [n] out. Counts the launch."""
+    current stream, inside the op ``mlp_ppo_torch::mlp_value``; f32 [n]
+    out. Counts the launch."""
     n = boards.shape[0]
     dev = boards.device
     ok = (boards.is_cuda and boards.dtype == torch.int8 and boards.dim() == 2
@@ -264,9 +245,8 @@ def launch_kernel(boards, f, valid, wpack, head) -> torch.Tensor:
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    _launch_op()(boards, f, f if valid is None else valid, wpack, head, out, count,
-                 valid is not None)
-    KERNEL.count_launch()
+    KERNEL.launch(boards, f, f if valid is None else valid, wpack, head, out, count,
+                  valid is not None)
     return out
 
 

@@ -13,11 +13,13 @@ Two implementations of one function:
   clock of the tracer's host spans, written through numpy views;
 * the CUDA kernel ``csrc/stamp.cu`` (sm_90a): the device's ``%globaltimer``
   in nanoseconds, read and written by one thread on the current stream, so
-  it can sit inside a captured CUDA graph, whose replays advance the cursor.
+  it can sit inside a captured CUDA graph, whose replays advance the cursor;
+  launched inside the dispatcher op ``mlp_ppo_torch::stamp``.
 
 ``stamp`` routes a CPU ring to the plain version and a CUDA ring to the
-kernel, and raises on anything else. Nothing here synchronises the host
-with the card.
+kernel, and raises on anything else; it is the tracer's stamp writer
+(``utils.profiling.CLOCK``), registered when the kernel package is
+imported. Nothing here synchronises the host with the card.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from pathlib import Path
 import torch
 
 from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import CudaKernel
+from mlp_ppo_2ply_multi_tpu_torch.utils import profiling
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "stamp.cu"
 KERNEL_NAME = "stamp_kernel"  # the kernel's name in a profiler trace
@@ -41,7 +44,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.stamp_launch.restype = ctypes.c_int
 
 
-KERNEL = CudaKernel(_SRC, _bind)
+KERNEL = CudaKernel(
+    _SRC, _bind, "(Tensor(a!) ring, Tensor(b!) cursor, int col, int close) -> ()",
+    lambda ring, cursor, col, close: (ring.data_ptr(), cursor.data_ptr(), ring.shape[0],
+                                      ring.shape[1], col, close))
 
 
 def _check(ring: torch.Tensor, cursor: torch.Tensor, col: int, close: int) -> None:
@@ -72,19 +78,12 @@ def stamp_plain(ring: torch.Tensor, cursor: torch.Tensor, col: int, close: int) 
 
 
 def launch_kernel(ring: torch.Tensor, cursor: torch.Tensor, col: int, close: int) -> None:
-    """Launch the CUDA kernel on the current stream. Counts the launch
-    (``CudaKernel.count_launch``)."""
+    """Launch the CUDA kernel on the current stream, inside the op
+    ``mlp_ppo_torch::stamp``. Counts the launch (``CudaKernel.count_launch``)."""
     _check(ring, cursor, col, close)
     if not ring.is_cuda:
         raise ValueError(f"the stamp kernel runs on cuda, the ring is on {ring.device}")
-    lib = KERNEL.load()
-    with torch.cuda.device(ring.device):
-        stream = torch.cuda.current_stream(ring.device).cuda_stream
-        rc = lib.stamp_launch(ring.data_ptr(), cursor.data_ptr(), ring.shape[0], ring.shape[1],
-                              col, close, stream)
-    if rc != 0:
-        raise RuntimeError(f"stamp kernel launch failed: CUDA error {rc}")
-    KERNEL.count_launch()
+    KERNEL.launch(ring, cursor, col, close)
 
 
 def stamp(ring: torch.Tensor, cursor: torch.Tensor, col: int, close: int = 0) -> None:
@@ -98,3 +97,6 @@ def stamp(ring: torch.Tensor, cursor: torch.Tensor, col: int, close: int = 0) ->
         launch_kernel(ring, cursor, col, close)
     else:
         raise ValueError(f"stamp cannot run on device {ring.device}")
+
+
+profiling.CLOCK.append(stamp)

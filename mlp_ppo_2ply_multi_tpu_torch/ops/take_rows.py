@@ -15,7 +15,8 @@ Two implementations of one function, bit-identical:
 * ``take_rows_plain`` — advanced indexing and a mask, the CPU path and on the
   card the kernel's oracle;
 * the CUDA kernel ``csrc/take_rows.cu`` (sm_90a), built with ``nvcc`` at
-  first use (``ops/_cuda_build.py``) and bound with ``ctypes``.
+  first use and launched inside the dispatcher op
+  ``mlp_ppo_torch::take_rows`` (``ops/_cuda_build.py``).
 
 ``take_rows`` routes a CPU tensor to the plain version and a CUDA tensor to
 the kernel, and raises on anything else. The sorted move generator
@@ -55,7 +56,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.take_rows_plan.restype = ctypes.c_int
 
 
-KERNEL = CudaKernel(_SRC, _bind)
+def _c_args(boards: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> tuple:
+    n, w, c = boards.shape
+    return (boards.data_ptr(), idx.data_ptr(), idx.element_size(), out.data_ptr(), n, w,
+            idx.shape[1], c // 4)
+
+
+KERNEL = CudaKernel(_SRC, _bind, "(Tensor boards, Tensor idx, Tensor(a!) out) -> ()", _c_args)
 
 
 def _check(boards, idx) -> None:
@@ -99,9 +106,10 @@ def plan(n: int, w: int, k: int, c: int) -> dict:
 
 
 def launch_kernel(boards: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream. The operands must be
-    contiguous and 4-byte aligned, with C a multiple of 4 (up to about
-    3 KB); raises otherwise. Counts the launch (``CudaKernel.count_launch``)."""
+    """Launch the CUDA kernel on the current stream, inside the op
+    ``mlp_ppo_torch::take_rows``. The operands must be contiguous and 4-byte
+    aligned, with C a multiple of 4 (up to about 3 KB); raises otherwise.
+    Counts the launch (``CudaKernel.count_launch``)."""
     _check(boards, idx)
     if not boards.is_cuda:
         raise ValueError(f"the take_rows kernel runs on cuda, inputs are on {boards.device}")
@@ -119,14 +127,7 @@ def launch_kernel(boards: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, k, c), dtype=torch.int8, device=boards.device)
     if out.numel() == 0:
         return out
-    lib = KERNEL.load()
-    with torch.cuda.device(boards.device):
-        stream = torch.cuda.current_stream(boards.device).cuda_stream
-        rc = lib.take_rows_launch(boards.data_ptr(), idx.data_ptr(), idx.element_size(),
-                                  out.data_ptr(), n, w, k, cw, stream)
-    if rc != 0:
-        raise RuntimeError(f"take_rows kernel launch failed: CUDA error {rc}")
-    KERNEL.count_launch()
+    KERNEL.launch(boards, idx, out)
     return out
 
 

@@ -16,8 +16,9 @@ reads: PyTorch's CPU kernels make such reads as argument checks
 (``one_hot``'s bounds) where its CUDA kernels check nothing, and the port's
 steps read nothing to the host on the card.
 
-The port's CUDA kernels are launched through ``ctypes``, which no dispatch
-mode sees. Their wrappers run inside ``kernel``: while a counter is active
+The port's CUDA kernels launch inside ops of their own namespace
+(``mlp_ppo_torch``), which the count leaves out, as it does every op outside
+aten. Their wrappers run inside ``kernel``: while a counter is active
 it adds the kernel's own count (its bound's formula, beside the wrapper)
 and counts none of the ops inside, neither the plain route's on the CPU nor
 the operand layout on the card. One step then counts the same on the CPU as

@@ -25,20 +25,21 @@ bounded, while ``MLP_PPO_TORCH_TRACE`` is not ``0`` (the default records):
   counts the rows it launched (a graph's replay counts the rows captured in
   it), so it knows where each landed without reading the cursor; the
   cursor, copied with each update's rows, checks that count;
-* counters: graphs captured and kernels built or loaded (their ``capture``
-  and ``build`` spans), the doubles kernel's launches (``dd_kernel_launches``:
-  ``ops.dd_expand``'s launch count, eager and replayed, read as the update
-  opens and closes) and the plain doubles chain's calls on a card
-  (``dd_plain``), by update; the non-doubles tail kernel B2's launches
-  (``nd_tail_kernel_launches``: ``experimental.nd_tail``'s launch count,
-  read as the doubles kernel's) and the plain tail's runs on a card
-  (``nd_tail_plain``: the Gram dedup's passes, ``movegen2._tier_tail``, and
-  calls of ``nd_tail.nd_tail_plain``); the deep net's kernel D2 (``ops.mlp_value``):
-  its launches (``mlp_kernel_launches``, read as the doubles kernel's), and
-  the rows its callers needed valued and the rows it computed
-  (``mlp_rows_needed``, ``mlp_rows_computed``: device counters the kernel
-  adds to, copied out without a wait as each update closes, read with the
-  update's rows).
+* counters, by update: graphs captured and kernels built or loaded (their
+  ``capture`` and ``build`` spans); the launches, eager and replayed, of
+  each kernel of the launch registry (``KERNELS``: every hand-written
+  kernel registers itself) that has a ``counter`` name, read as the update
+  opens and closes (``dd_kernel_launches``, ``nd_tail_kernel_launches``,
+  ``mlp_kernel_launches``); the growth of a registered kernel's device
+  counters (D2's ``mlp_rows_needed`` and ``mlp_rows_computed``: the rows
+  its callers needed valued and the rows it computed, int64 tensors it
+  adds to), copied out without a wait as each update closes and read with
+  the update's rows; and what the program counts by name (``count``: the
+  plain doubles chain's calls on a card, ``dd_plain``, and the plain
+  tail's runs on a card, ``nd_tail_plain``).
+
+The launch registry (``KERNELS``, and the stamp writer ``CLOCK``) sits in
+this, the lowest layer, so that nothing below the kernels imports them.
 
 An update's rows are copied to pinned host memory without a wait when the
 update closes (the learner's end, or the next rollout), and read once that
@@ -63,7 +64,6 @@ import contextlib
 import json
 import os
 import re
-import sys
 import threading
 import time
 from typing import (Callable, Deque, Dict, Iterable, Iterator, List, NamedTuple, Optional, Set,
@@ -258,11 +258,11 @@ def device_stage_times(fn: Callable, *args) -> StageTimes:
     ``fn`` up first. Attribution follows the profiler's links from a kernel
     to the CPU op that launched it, so it needs an eager call: a CUDA graph
     replay links every kernel to ``cudaGraphLaunch``. A kernel launched
-    through ctypes outside any op is linked to no event, scopes around it or
-    not, and counts in ``traced_ms`` alone (the doubles kernel and B2 launch
-    inside dispatcher ops of their own, ``ops.dd_expand`` and
-    ``experimental.nd_tail``, for this). Empty
-    when the result holds no CUDA tensor."""
+    through ctypes outside any op would be linked to no event, scopes around
+    it or not, and count in ``traced_ms`` alone: every hand-written kernel
+    launches inside a dispatcher op of its own for this
+    (``ops._cuda_build.CudaKernel``). Empty when the result holds no CUDA
+    tensor."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -308,6 +308,62 @@ def queued_ms_per_round(fns, dev: torch.device, rounds: int = 10) -> float:
 
 
 # ---------------------------------------------------------------------------
+# the launch registry: every hand-written kernel, for graphs and the tracer
+# ---------------------------------------------------------------------------
+
+# every ``ops._cuda_build.CudaKernel`` made, in order (each appends itself):
+# what is read of one is its ``name``, ``launches``, ``captured``, ``counter``,
+# ``device_counters`` and ``per_capture`` (``CudaKernel``'s docstring)
+KERNELS: List = []
+# the tracer's stamp writer, ``ops.stamp.stamp(ring, cursor, col, close)``,
+# which that module appends when imported (the kernel package imports it)
+CLOCK: List[Callable] = []
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Each registered kernel's launches that ran so far, by name: a
+    snapshot, whose difference to a later one counts the launches between."""
+    out: Dict[str, int] = {}
+    for k in KERNELS:
+        out[k.name] = out.get(k.name, 0) + k.launches
+    return out
+
+
+class GraphLaunches:
+    """The kernel launches one CUDA graph holds, counted by the kernels
+    while it is captured, with each kernel's ``per_capture`` context
+    entered around the capture::
+
+        with GraphLaunches() as held:
+            ...  # capture
+        graph.replay()
+        held.replayed()  # each kernel's count += its launches in the graph
+    """
+
+    def __init__(self) -> None:
+        self.per_replay: Dict[object, int] = {}
+
+    def __enter__(self) -> "GraphLaunches":
+        self._before = {k: k.captured for k in KERNELS}
+        self._contexts = contextlib.ExitStack()
+        for k in KERNELS:
+            if k.per_capture is not None:
+                self._contexts.enter_context(k.per_capture())
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._contexts.close()
+        self.per_replay = {
+            k: k.captured - self._before.get(k, 0)
+            for k in KERNELS if k.captured != self._before.get(k, 0)
+        }
+
+    def replayed(self, times: int = 1) -> None:
+        for k, n in self.per_replay.items():
+            k.launches += n * times
+
+
+# ---------------------------------------------------------------------------
 # the tracer: host spans, device stamps, counters
 # ---------------------------------------------------------------------------
 
@@ -316,14 +372,15 @@ WIDTH = 5  # int64 columns of a ring row: up to 4 stamps, then its sequence numb
 SETUP_SPANS = {"capture": "captures", "build": "builds"}  # one-time work, and its counter
 STAMP_KERNEL = "stamp_kernel"  # ``ops.stamp``'s kernel, by its name in a profiler trace
 KINDS = {"step": 1, "launch": 2, "learner": 3}  # a row's kind, in its last column
-# counters that ``trace_summary`` reads by update: the doubles kernel's
-# launches (``ops.dd_expand``, read as each update opens and closes), the
-# plain doubles chain's calls on a card (``count``), B2's launches (as the
-# doubles kernel's) and the plain tail's runs on a card (``count``), D2's launches
-# (as the doubles kernel's) and its rows needed and computed (device counters)
-MLP_ROWS = ("mlp_rows_needed", "mlp_rows_computed")
+# counters that ``trace_summary`` reads by update: the launches of the
+# kernels registered with these ``counter`` names (the doubles kernel, B2 and
+# D2; read as each update opens and closes, and 0 while a kernel is not
+# loaded), the plain doubles chain's and the plain tail's runs on a card
+# (``count``), and D2's rows needed and computed (its ``device_counters``)
+LAUNCH_COUNTERS = ("dd_kernel_launches", "nd_tail_kernel_launches", "mlp_kernel_launches")
 UPDATE_COUNTERS = ("dd_kernel_launches", "dd_plain", "nd_tail_kernel_launches",
-                   "nd_tail_plain", "mlp_kernel_launches") + MLP_ROWS
+                   "nd_tail_plain", "mlp_kernel_launches", "mlp_rows_needed",
+                   "mlp_rows_computed")
 
 
 def tracing() -> bool:
@@ -372,40 +429,11 @@ class _Row(NamedTuple):
     seq: int  # the row's number in its ring; -1 while held by a captured graph
 
 
-def _dd_kernel_launches() -> int:
-    """The doubles kernel's launches that ran so far, eager and replayed
-    (``ops.dd_expand.KERNEL.launches``)."""
-    from mlp_ppo_2ply_multi_tpu_torch.ops import dd_expand  # it imports this module
-
-    return dd_expand.KERNEL.launches
-
-
-def _nd_tail_kernel_launches() -> int:
-    """B2's launches that ran so far, eager and replayed
-    (``experimental.nd_tail.KERNEL.launches``)."""
-    from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail  # it imports this module
-
-    return nd_tail.KERNEL.launches
-
-
-def _mlp_value():
-    """``ops.mlp_value`` where it is loaded, else None (nothing ran it yet;
-    it imports this module)."""
-    mod = sys.modules.get("mlp_ppo_2ply_multi_tpu_torch.ops.mlp_value")
-    return mod if mod is not None and hasattr(mod, "counter_tensors") else None
-
-
-def _mlp_kernel_launches() -> int:
-    """D2's launches that ran so far, eager and replayed
-    (``ops.mlp_value.KERNEL.launches``)."""
-    mod = _mlp_value()
-    return mod.KERNEL.launches if mod is not None else 0
-
-
-def _mlp_counters() -> Dict[str, torch.Tensor]:
-    """D2's row counters (needed, computed) of each device, by name."""
-    mod = _mlp_value()
-    return mod.counter_tensors() if mod is not None else {}
+def _device_counters() -> List[Tuple[Tuple[str, str], Tuple[str, ...], torch.Tensor]]:
+    """Each registered kernel's device counters: ((kernel, device), their
+    names, the int64 tensor)."""
+    return [((k.name, dev), k.device_counters[0], t) for k in KERNELS if k.device_counters
+            for dev, t in k.device_counters[1]().items()]
 
 
 class _Update:
@@ -416,9 +444,8 @@ class _Update:
         self.rows: List[_Row] = []
         self.spans: List[Span] = []
         self.counters: Dict[str, int] = {}
-        self.dd_launches = _dd_kernel_launches()  # at the update's opening
-        self.nd_launches = _nd_tail_kernel_launches()
-        self.mlp_launches = _mlp_kernel_launches()
+        # each counted kernel's launches at the update's opening
+        self.launches = {k: k.launches for k in KERNELS if k.counter}
 
 
 class Tracer:
@@ -447,9 +474,10 @@ class Tracer:
             self._next_update = 0
             self._next_span = 0
             self._captured: Optional[List[_Row]] = None
-            # device -> D2's row counters at the last record read (a reset reads them now)
-            self._mlp_rows: Dict[str, List[int]] = {
-                name: c.tolist() for name, c in _mlp_counters().items()}
+            # (kernel, device) -> its device counters at the last record read
+            # (a reset reads them now)
+            self._device_rows: Dict[Tuple[str, str], List[int]] = {
+                key: c.tolist() for key, _, c in _device_counters()}
 
     # ---- spans and counters
 
@@ -529,9 +557,7 @@ class Tracer:
     @staticmethod
     def _stamp(ring: _Ring, col: int, kind: Optional[str] = None) -> None:
         """One stamp in column ``col``; ``kind`` closes the row."""
-        from mlp_ppo_2ply_multi_tpu_torch.ops import stamp
-
-        stamp.stamp(ring.buf, ring.cursor, col, KINDS[kind] if kind else 0)
+        CLOCK[0](ring.buf, ring.cursor, col, KINDS[kind] if kind else 0)
 
     def _row_done(self, kind: str, names: Tuple[str, ...], ring: _Ring) -> None:
         """A row whose last (advancing) stamp was just launched: counted
@@ -628,10 +654,12 @@ class Tracer:
         upd, self._open = self._open, None
         if upd is None:
             return
-        upd.counters["dd_kernel_launches"] = _dd_kernel_launches() - upd.dd_launches
-        upd.counters["nd_tail_kernel_launches"] = (_nd_tail_kernel_launches()
-                                                   - upd.nd_launches)
-        upd.counters["mlp_kernel_launches"] = _mlp_kernel_launches() - upd.mlp_launches
+        for name in LAUNCH_COUNTERS:
+            upd.counters.setdefault(name, 0)
+        for k in KERNELS:
+            if k.counter:
+                grown = k.launches - upd.launches.get(k, 0)
+                upd.counters[k.counter] = upd.counters.get(k.counter, 0) + grown
         if not (upd.rows or upd.spans):
             return
         by_ring: Dict[int, List[_Row]] = {}
@@ -663,9 +691,9 @@ class Tracer:
                 ev.record(torch.cuda.current_stream(ring.dev))
                 events.append(ev)
             copies.append((ring, first, dst, cursor, ring.launched))
-        # D2's row counters, as they stand when the update's work is done
-        rows = {}
-        for name, c in _mlp_counters().items():
+        # the kernels' device counters, as they stand when the update's work is done
+        rows = []
+        for key, names, c in _device_counters():
             cuda = c.is_cuda
             dst = torch.empty(c.shape, dtype=c.dtype, pin_memory=cuda)
             dst.copy_(c, non_blocking=cuda)
@@ -673,7 +701,7 @@ class Tracer:
                 ev = torch.cuda.Event()
                 ev.record(torch.cuda.current_stream(c.device))
                 events.append(ev)
-            rows[name] = dst
+            rows.append((key, names, dst))
         self._pending.append((upd, copies, events, rows))
         while len(self._pending) > 64:  # the device is far behind: keep the newest
             self._pending.popleft()
@@ -690,15 +718,15 @@ class Tracer:
                 return
             self._pending.popleft()
             rec = _record(upd, copies)
-            # D2's rows: the counters' growth since the last record read
-            # (kept where it grew)
-            for name, dst in rows.items():
+            # the device counters' growth since the last record read (kept
+            # where it grew)
+            for key, names, dst in rows:
                 now = dst.tolist()
-                last = self._mlp_rows.get(name, [0] * len(now))
-                for key, a, b in zip(MLP_ROWS, now, last):
+                last = self._device_rows.get(key, [0] * len(now))
+                for name, a, b in zip(names, now, last):
                     if a != b:
-                        rec["counters"][key] = rec["counters"].get(key, 0) + a - b
-                self._mlp_rows[name] = now
+                        rec["counters"][name] = rec["counters"].get(name, 0) + a - b
+                self._device_rows[key] = now
             self.records.append(rec)
 
     def records_in(self, t0: Optional[float] = None, t1: Optional[float] = None) -> List[dict]:
@@ -948,15 +976,13 @@ def _device_minus_perf_ns(dev: torch.device) -> int:
     host's). 0 on the CPU, whose stamps are ``perf_counter_ns``. Syncs."""
     if dev.type != "cuda":
         return 0
-    from mlp_ppo_2ply_multi_tpu_torch.ops import stamp
-
     buf = torch.zeros((1, WIDTH), dtype=torch.int64, device=dev)
     cur = torch.zeros(1, dtype=torch.int64, device=dev)
     best = None
     for _ in range(5):
         torch.cuda.synchronize(dev)
         a = time.perf_counter_ns()
-        stamp.stamp(buf, cur, 0)
+        CLOCK[0](buf, cur, 0)
         torch.cuda.synchronize(dev)
         b = time.perf_counter_ns()
         t = int(buf[0, 0])

@@ -9,8 +9,8 @@
 * ``bound``: the bytes in and out.
 * A CPU tensor takes the plain chain: the kernel is neither planned nor
   launched, and the outputs are the plain chain's.
-* The tracer counts the kernel's launches (eager and replayed) and the
-  plain chain's calls on a card by update, and ``trace_summary`` reads them.
+* The tracer's counters of the kernel and of the plain chain:
+  tests/test_torch_kernel_seam.py.
 
 The kernel itself on the card: tests/test_torch_dd_expand_gpu.py.
 """
@@ -22,7 +22,7 @@ import torch
 from mlp_ppo_2ply_multi_tpu_torch.core.config import Config, MoveGenConfig, TwoPlyConfig
 from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
-from mlp_ppo_2ply_multi_tpu_torch.ops import _cuda_build, dd_expand, fused_value
+from mlp_ppo_2ply_multi_tpu_torch.ops import dd_expand
 from mlp_ppo_2ply_multi_tpu_torch.oracle.sampling import sample_cases
 from mlp_ppo_2ply_multi_tpu_torch.utils import profiling as P
 
@@ -144,24 +144,6 @@ def test_the_kernel_route_refuses_a_cpu_board():
         dd_expand.launch_kernel(board.data.to(torch.int16), player, die, FAST)
 
 
-def test_the_launch_op_is_defined_once_and_for_cuda_alone():
-    """The kernel launches through the dispatcher op
-    ``mlp_ppo_torch::dd_expand`` (so the profiler links it to its scope):
-    defined at the first launch and once, writing its four outputs, with no
-    CPU body."""
-    op = dd_expand._launch_op()
-    assert dd_expand._launch_op() is op and len(dd_expand._LIBRARY) == 1
-    schema = str(op.default._schema)
-    for out in ("Tensor(a!) boards", "Tensor(b!) valid", "Tensor(c!) count",
-                "Tensor(d!) overflow"):
-        assert out in schema
-    board, player, die = _cases(2)
-    outs = (torch.empty((2, 3, 52), dtype=torch.int8), torch.empty((2, 3), dtype=torch.bool),
-            torch.empty(2, dtype=torch.int32), torch.empty(2, dtype=torch.bool))
-    with pytest.raises(NotImplementedError):
-        op(board.data, player, die, *outs, [1, 2, 2, 3, 3, 32, 1])
-
-
 def test_a_precomputed_root_table_changes_nothing():
     """``s1`` (``die_tables``' table for the die) gives the table the
     enumeration builds itself, which is why the kernel may ignore it."""
@@ -174,55 +156,6 @@ def test_a_precomputed_root_table_changes_nothing():
     b = movegen2.enumerate_doubles(board, player, die, cfg)
     for x, y in zip(a, b):
         assert torch.equal(getattr(x, "data", x), getattr(y, "data", y))
-
-
-def test_launches_and_plain_calls_counted_by_update(monkeypatch):
-    monkeypatch.setenv(P.TRACE_ENV, "1")
-    monkeypatch.setattr(dd_expand.KERNEL, "launches", 0)
-    P.TRACER.reset()
-    held = _cuda_build.GraphLaunches()
-    held.per_replay = {dd_expand.KERNEL: 4}  # a chunk graph of four steps
-    for update in range(2):
-        P.new_update()
-        with P.scope("rollout", span=True):
-            dd_expand.KERNEL.launches += 1  # an eager step
-            for _ in range(3 + update):
-                held.replayed()
-        P.count("dd_plain", update)
-    P.trace_flush()
-    recs = P.trace_records()
-    assert [r["counters"].get("dd_kernel_launches") for r in recs] == [13, 17]
-    assert [r["counters"].get("dd_plain", 0) for r in recs] == [0, 1]
-    s = P.trace_summary()
-    assert (s["trace/dd_kernel_launches"], s["trace/dd_plain"]) == (17.0, 1.0)
-    assert dd_expand.KERNEL.launches == 30
-    # tracing off: the kernel's own count goes on, the tracer keeps nothing
-    monkeypatch.setenv(P.TRACE_ENV, "0")
-    P.TRACER.reset()
-    held.replayed()
-    assert dd_expand.KERNEL.launches == 34 and dict(P.TRACER.counters) == {}
-    P.TRACER.reset()
-
-
-def test_other_kernels_count_no_tracer_counter(monkeypatch):
-    """The tracer reads the doubles kernel's launches alone: another
-    kernel's launches, eager and replayed, leave its update counters at 0."""
-    monkeypatch.setenv(P.TRACE_ENV, "1")
-    P.TRACER.reset()
-    k = fused_value.KERNEL
-    monkeypatch.setattr(k, "launches", 0)
-    held = _cuda_build.GraphLaunches()
-    held.per_replay = {k: 15}
-    P.new_update()
-    with P.scope("rollout", span=True):
-        k.launches += 1  # an eager launch
-        held.replayed(2)
-    P.trace_flush()
-    (rec,) = P.trace_records()
-    assert k.launches == 31 and rec["counters"] == {
-        "dd_kernel_launches": 0, "nd_tail_kernel_launches": 0, "mlp_kernel_launches": 0}
-    assert dict(P.TRACER.counters) == {}
-    P.TRACER.reset()
 
 
 def test_reply_configs_reach_the_planned_widths():

@@ -42,7 +42,7 @@ from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
 from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
 from mlp_ppo_2ply_multi_tpu_torch.model import value_net
-from mlp_ppo_2ply_multi_tpu_torch.ops import _cuda_build, dd_expand
+from mlp_ppo_2ply_multi_tpu_torch.ops import dd_expand
 from mlp_ppo_2ply_multi_tpu_torch.oracle.sampling import sample_cases
 from mlp_ppo_2ply_multi_tpu_torch.utils import profiling as P
 from tests.test_torch_graph_gpu import _assert_same, _production
@@ -226,7 +226,7 @@ def test_kernel_inside_a_captured_graph(name):
         movegen2.enumerate_doubles(Board(static[0]), static[1], static[2], cfg)  # warm-up
     torch.cuda.current_stream(dev).wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    with _cuda_build.GraphLaunches() as held, torch.cuda.graph(graph, stream=stream):
+    with P.GraphLaunches() as held, torch.cuda.graph(graph, stream=stream):
         out = movegen2.enumerate_doubles(Board(static[0]), static[1], static[2], cfg)
     assert held.per_replay == {dd_expand.KERNEL: 1}
     for seed in (41, 42, 43):

@@ -421,3 +421,68 @@ def test_nd_tail_kernel_raises_on_what_it_cannot_take():
     cpu_b0[3] = cpu_b0[3].cpu()
     with pytest.raises(ValueError):
         nd_tail.nd_tail_fused(*cpu_b0, 96, 96)
+
+
+# the op check, in an interpreter of its own, as the attribution check above
+_OP_LINKS = """
+import torch
+from torch.profiler import ProfilerActivity, profile
+from tests.test_torch_kernel_gpu import CKPT
+from mlp_ppo_2ply_multi_tpu_torch.model import value_net
+from mlp_ppo_2ply_multi_tpu_torch.ops import fused_value as fv, take_rows as tr
+from mlp_ppo_2ply_multi_tpu_torch.utils import profiling
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(3)
+params = value_net.load_checkpoint(CKPT, device=dev)
+boards = torch.randint(0, 16, (4096, 96, 52), generator=gen, device=dev).to(torch.int8)
+flag = torch.randint(0, 2, (4096, 1), generator=gen, device=dev)
+idx = torch.randint(0, 96, (4096, 8), generator=gen, device=dev)
+
+def run():
+    with profiling.scope("act_t1"):
+        fv.fused_value(boards, flag, params)
+    with profiling.scope("take"):
+        tr.take_rows(boards, idx)
+
+run()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    run()
+    torch.cuda.synchronize()
+events = prof.events()
+names = ("fused_value_kernel", "take_rows_kernel")
+links = []
+for e in events:
+    for k in getattr(e, "kernels", None) or []:
+        for name in names:
+            if name in k.name:
+                chain, p = [], e
+                while p is not None:
+                    chain.append(p.name)
+                    p = p.cpu_parent
+                links.append((name, e.name, profiling.stage_tag(chain[::-1], k.name)))
+device = [e.name for e in profiling.device_events(events)]
+traced = sum(any(n in d for n in names) for d in device)
+print(repr((links, traced, sorted(set(d[:80] for d in device)))))
+"""
+
+
+@pytest.mark.gpu
+def test_b1_and_take_rows_launch_inside_their_ops():
+    """B1 and take_rows launch inside the ops ``mlp_ppo_torch::fused_value``
+    and ``mlp_ppo_torch::take_rows``, so torch.profiler links each kernel to
+    its op, and ``stage_tag`` puts it under the scope around the call."""
+    import ast
+    import os
+    import subprocess
+    import sys
+
+    _card()
+    root = pathlib.Path(__file__).resolve().parent.parent
+    run = subprocess.run([sys.executable, "-c", _OP_LINKS], cwd=root, capture_output=True,
+                         text=True, timeout=600, env={**os.environ, "PYTHONPATH": str(root)})
+    assert run.returncode == 0, run.stderr[-3000:]
+    links, traced, device = ast.literal_eval(run.stdout.strip().splitlines()[-1])
+    assert links == [("fused_value_kernel", "mlp_ppo_torch::fused_value", "act_t1"),
+                     ("take_rows_kernel", "mlp_ppo_torch::take_rows", "take")], (links, device)
+    assert traced == 2, (traced, device)

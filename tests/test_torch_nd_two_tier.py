@@ -11,9 +11,8 @@
 * The route's outputs are those of the plain ``_nd_tail`` route in every
   output tensor, slots that are not kept included, with wide games past
   tier 2's sub-batch (its overflow branch).
-* The tracer counts B2's launches (eager and replayed) and the plain tail's
-  runs on a card by update, and ``trace_summary`` reads them; a CPU call
-  counts neither.
+* A CPU call counts neither B2's launches nor the plain tail's runs on a
+  card (the counters themselves: tests/test_torch_kernel_seam.py).
 
 The kernel on the card: tests/test_torch_kernel_gpu.py.
 """
@@ -27,7 +26,6 @@ from mlp_ppo_2ply_multi_tpu_torch.core.config import MoveGenConfig
 from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
 from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
-from mlp_ppo_2ply_multi_tpu_torch.ops import _cuda_build
 from mlp_ppo_2ply_multi_tpu_torch.oracle.sampling import sample_cases
 from mlp_ppo_2ply_multi_tpu_torch.utils import profiling as P
 
@@ -167,33 +165,4 @@ def test_cpu_calls_count_neither_counter(monkeypatch):
     assert nd_tail.KERNEL.launches == launches
     assert rec["counters"].get("nd_tail_kernel_launches") == 0
     assert "nd_tail_plain" not in P.TRACER.counters  # counted on a card only
-    P.TRACER.reset()
-
-
-def test_b2_launches_and_plain_calls_counted_by_update(monkeypatch):
-    monkeypatch.setenv(P.TRACE_ENV, "1")
-    monkeypatch.setattr(nd_tail.KERNEL, "launches", 0)
-    P.TRACER.reset()
-    held = _cuda_build.GraphLaunches()
-    held.per_replay = {nd_tail.KERNEL: 8}  # a chunk graph of four 1-ply steps
-    for update in range(2):
-        P.new_update()
-        with P.scope("rollout", span=True):
-            nd_tail.KERNEL.launches += 2  # an eager step's two tiers
-            for _ in range(3 + update):
-                held.replayed()
-        P.count("nd_tail_plain", update)
-    P.trace_flush()
-    recs = P.trace_records()
-    assert [r["counters"].get("nd_tail_kernel_launches") for r in recs] == [26, 34]
-    assert [r["counters"].get("nd_tail_plain", 0) for r in recs] == [0, 1]
-    assert [r["counters"].get("dd_kernel_launches") for r in recs] == [0, 0]
-    s = P.trace_summary()
-    assert (s["trace/nd_tail_kernel_launches"], s["trace/nd_tail_plain"]) == (34.0, 1.0)
-    assert s["trace/dd_kernel_launches"] == 0.0
-    # tracing off: the kernel's own count goes on, the tracer keeps nothing
-    monkeypatch.setenv(P.TRACE_ENV, "0")
-    P.TRACER.reset()
-    held.replayed()
-    assert nd_tail.KERNEL.launches == 68 and dict(P.TRACER.counters) == {}
     P.TRACER.reset()

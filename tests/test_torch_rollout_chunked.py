@@ -42,6 +42,7 @@ from mlp_ppo_2ply_multi_tpu_torch.model import value_net as tV
 from mlp_ppo_2ply_multi_tpu_torch.ops import _cuda_build
 from mlp_ppo_2ply_multi_tpu_torch.ops import fused_value as fv
 from mlp_ppo_2ply_multi_tpu_torch.twoply import expectimax as tX
+from mlp_ppo_2ply_multi_tpu_torch.utils import profiling
 from tests.test_torch_rollout import CKPT, _leaves, _midgame_state, _state_to_port, _t
 from tests.test_torch_twoply import one_torch_thread  # noqa: F401 (autouse)
 
@@ -219,7 +220,7 @@ def test_pack_g_reads_the_cached_index_map():
 
 
 def test_launches_captured_in_a_graph_count_once_per_replay(monkeypatch, tmp_path):
-    monkeypatch.setattr(_cuda_build, "_KERNELS", [])
+    monkeypatch.setattr(profiling, "KERNELS", [])
     a = _cuda_build.CudaKernel(tmp_path / "a.cu", lambda lib: None)
     b = _cuda_build.CudaKernel(tmp_path / "b.cu", lambda lib: None)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
@@ -227,7 +228,7 @@ def test_launches_captured_in_a_graph_count_once_per_replay(monkeypatch, tmp_pat
     assert (a.launches, a.captured) == (1, 0)
     capturing = [False]
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
-    with _cuda_build.GraphLaunches() as held:
+    with profiling.GraphLaunches() as held:
         capturing[0] = True
         for _ in range(22):
             a.count_launch()
@@ -239,7 +240,7 @@ def test_launches_captured_in_a_graph_count_once_per_replay(monkeypatch, tmp_pat
     held.replayed()
     held.replayed(3)
     assert (a.launches, b.launches) == (1 + 4 * 22, 4 * 15)
-    with _cuda_build.GraphLaunches() as none:  # a graph without kernels
+    with profiling.GraphLaunches() as none:  # a graph without kernels
         pass
     none.replayed(5)
     assert none.per_replay == {} and (a.launches, b.launches) == (1 + 4 * 22, 4 * 15)
@@ -257,14 +258,14 @@ def test_chunk_graph_replay_fills_its_buffers_and_counts(monkeypatch, tmp_path):
     """ChunkGraph.replay on stand-ins for the captured graph (CPU buffers):
     the state, temperature and noise go into the static buffers, the graph
     replays once, and each replay adds the captured launches."""
-    monkeypatch.setattr(_cuda_build, "_KERNELS", [])
+    monkeypatch.setattr(profiling, "KERNELS", [])
     k = _cuda_build.CudaKernel(tmp_path / "k.cu", lambda lib: None)
     cfg = split_cfg()
     gen = torch.Generator().manual_seed(4)
     cpu = torch.device("cpu")
     g = tR.ChunkGraph.__new__(tR.ChunkGraph)
     g.graph = _StubGraph()
-    g.launches = _cuda_build.GraphLaunches()
+    g.launches = profiling.GraphLaunches()
     g.launches.per_replay = {k: 2 * CHUNK}
     g.state = tree.tmap(torch.zeros_like, tE.reset(B, gen, device="cpu"))
     g.noise = [tree.tmap(torch.zeros_like, tR.draw_noise(B, cfg, gen, cpu)) for _ in range(CHUNK)]

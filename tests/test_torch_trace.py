@@ -218,7 +218,7 @@ def test_span_parents_and_self_time():
 
 
 def test_build_span_and_counters(monkeypatch, tmp_path):
-    monkeypatch.setattr(_cuda_build, "_KERNELS", [])
+    monkeypatch.setattr(P, "KERNELS", [])
     k = _cuda_build.CudaKernel(tmp_path / "k.cu", lambda lib: None)
     monkeypatch.setattr(_cuda_build, "build",
                         lambda src: (src, {"path": str(src), "cached": True, "ptxas": ""}))

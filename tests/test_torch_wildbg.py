@@ -366,45 +366,42 @@ def test_train_cli_chooses_the_net():
 # ---------------------------------------------------------------------------
 
 
-def test_tracer_counts_d2_launches_and_rows_by_update(monkeypatch):
-    """``mlp_kernel_launches`` (eager and replayed launches), ``mlp_rows_needed``
-    and ``mlp_rows_computed`` (the device counters' growth) land in the
-    record of the update they fell in, read when the update's copy has
+def test_tracer_counts_d2_rows_by_update(monkeypatch):
+    """``mlp_rows_needed`` and ``mlp_rows_computed`` (the growth of D2's
+    device counters, which its registry entry hands the tracer) land in
+    the record of the update they fell in, read when the update's copy has
     landed: each update's record holds its own rows, the next update's
-    calls none of them."""
-    from mlp_ppo_2ply_multi_tpu_torch.ops import _cuda_build
+    calls none of them. (D2's launches by update:
+    tests/test_torch_kernel_seam.py.)"""
     from mlp_ppo_2ply_multi_tpu_torch.utils import profiling as P
 
     monkeypatch.setenv(P.TRACE_ENV, "1")
-    monkeypatch.setattr(M.KERNEL, "launches", 0)
+    assert M.KERNEL.device_counters == (("mlp_rows_needed", "mlp_rows_computed"),
+                                        M.counter_tensors)
     p = _params()
     board, player, _ = _positions(31, 40)
     data, flag = board.data.reshape(4, 10, 52), player.reshape(4, 10)
     valid = torch.from_numpy(np.random.default_rng(1).random((4, 10)) < 0.5)
     M.counters("cpu")
     P.TRACER.reset()
-    held = _cuda_build.GraphLaunches()
-    held.per_replay = {M.KERNEL: 22}  # a 2-ply step's graph
     want = []
     for update in range(3):
         P.new_update()
         with P.scope("rollout", span=True):
-            M.KERNEL.launches += 2  # two eager launches
-            for _ in range(update):
-                held.replayed()
             for _ in range(update + 1):
                 fv.fused_value(data, flag, p, valid)
-        want.append((2 + 22 * update, (update + 1) * int(valid.sum()), (update + 1) * 40))
+        want.append(((update + 1) * int(valid.sum()), (update + 1) * 40))
         if update == 1:
             # the first update was read as soon as the second opened
-            assert [r["counters"].get("mlp_rows_needed") for r in P.trace_records()] == [want[0][1]]
+            assert [r["counters"].get("mlp_rows_needed") for r in P.trace_records()] == [want[0][0]]
     P.trace_flush()
     recs = P.trace_records()
-    got = [tuple(r["counters"].get(k) for k in ("mlp_kernel_launches", "mlp_rows_needed",
-                                                 "mlp_rows_computed")) for r in recs]
+    got = [tuple(r["counters"].get(k) for k in ("mlp_rows_needed", "mlp_rows_computed"))
+           for r in recs]
     assert got == want
     s = P.trace_summary()
-    assert (s["trace/mlp_kernel_launches"], s["trace/mlp_rows_needed"]) == (46.0, 3.0 * int(valid.sum()))
+    assert (s["trace/mlp_rows_needed"], s["trace/mlp_rows_computed"]) == (
+        3.0 * int(valid.sum()), 120.0)
     # calls outside any update go to the next record; a reset forgets them
     fv.fused_value(data, flag, p)
     P.TRACER.reset()
