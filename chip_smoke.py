@@ -61,8 +61,8 @@ Phases, in order; any failure exits non-zero:
    tier calls ([4096, K = 96] and [512, K = 288]) bit-equal to its plain
    version, ``after`` at every slot;
 4. main path (1-ply): warm-up, then timed production steps with the launch
-   counts read around them (two fused_value, two nd_tail and one dd_expand
-   launch per step);
+   counts read around them (two fused_value, two nd_tail, one dd_expand and
+   one nd_front launch per step);
 5. same step, kernel vs plain: one step from the same state and noise;
    decisions agree on >= 99.9% of rows and the integer state is identical
    on agreeing rows;
@@ -76,8 +76,8 @@ Phases, in order; any failure exits non-zero:
    kernel against its plain version (nd_tail bit-equal: keep, n_pre, pct,
    kpair everywhere, after at kept slots);
 10. main path (2-ply): warm-up, then timed steps; exactly 17 nd_tail, 22
-    fused_value and 7 dd_expand launches a step, checkers conserved, values
-    finite;
+    fused_value, 7 dd_expand and 1 nd_front launches a step, checkers
+    conserved, values finite;
 11. kernel vs no kernel (2-ply): one state, one noise, through the nd_tail
     kernel and through its plain version swapped in: identical decisions
     and state on every row;
@@ -238,8 +238,9 @@ Phases, in order; any failure exits non-zero:
     both steps' achieved fractions at most 1.05; one 1-ply step's count
     (``utils.cost``) on the card equal to the CPU's;
 41. ``scripts.trace_attr`` of the 1-ply step at B = 4096 and the tuned 2-ply
-    step at B = 1024: every JAX stage the step passes through owns device
-    time; the top stages, the unscoped share and the coverage;
+    step at B = 1024, each in an interpreter of its own: every JAX stage the
+    step passes through owns device time; the top stages, the unscoped share
+    and the coverage;
 42. ``scripts.bench_r2_sweep`` over prod, prod_gram, tiered and
     twoply_tuned (exit 0, a line each), tier0 refused (exit 1, named), and
     ``scripts.bench_spmd`` at n = 1 on a one-rank NCCL group;
@@ -256,6 +257,11 @@ Phases, in order; any failure exits non-zero:
     (the call's valid rows), timed with CUDA events beside its bound and
     the plain version and the kernel valuing every padded slot, a step's
     launches queued behind a spin;
+45. the non-doubles front kernel (``ops.nd_front``) on the inputs of one
+    1-ply step (B = 4096) and one 2-ply step (B = 1024: its own moves), one
+    call each: all five outputs byte-equal to the plain chain, timed with
+    CUDA events beside its bound and the plain chain, a step's launch
+    queued behind a spin;
 
 then the kernels line (launches summed over every path's timed run; the
 doubles kernel's over the main paths' runs of phases 4, 10, 16-18 and
@@ -312,6 +318,7 @@ MLP_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/ops/csrc/mlp_value.cu"
 MLP_STEPS = (("1ply", B_PROD, 2), ("2ply", 1024, 22))  # (path, batch, launches a step)
 MLP_ITERS = 20
 DD_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/ops/csrc/dd_expand.cu"
+NDF_SOURCE = "mlp_ppo_2ply_multi_tpu_torch/ops/csrc/nd_front.cu"
 # the doubles kernel's widths (w1, w2, w3, w4, a_max): fast(), Config(), the
 # tuned 2-ply replies of dies 1-3 and 4-6
 DD_WIDTHS = ((16, 96, 224, 448, 448), (16, 128, 288, 512, 512), (16, 64, 96, 64, 64),
@@ -345,6 +352,9 @@ ND_LAUNCHES_PER_STEP_2PLY = ND_TIER_LAUNCHES + ND_REPLY_LAUNCHES  # the step's o
 FV_LAUNCHES_PER_STEP_2PLY = 22  # candidates + 15 + 6 reply rolls
 DD_LAUNCHES_PER_STEP_1PLY = 1  # the doubles sub-batch
 DD_LAUNCHES_PER_STEP_2PLY = 7  # the step's own moves + 6 reply dice
+# the non-doubles front kernel: the step's own moves (the 2-ply replies take
+# precomputed passes and bypass it)
+ND_FRONT_LAUNCHES_PER_STEP = 1
 LEARN_STEPS = 64  # the learner's trajectory: --steps-per-update 64 at B_PROD
 # the CPU tests' learner tolerances (tests/test_torch_learner.py)
 LEARN_RTOL, PARAM_ATOL, MOMENT_RTOL, MOMENT_FLOOR = 1e-5, 1e-6, 1e-4, 1e-6
@@ -416,9 +426,10 @@ def _port():
     from mlp_ppo_2ply_multi_tpu_torch.utils import cost
     from mlp_ppo_2ply_multi_tpu_torch.ops import dd_expand
     from mlp_ppo_2ply_multi_tpu_torch.ops import mlp_value
+    from mlp_ppo_2ply_multi_tpu_torch.ops import nd_front
 
     return dict(
-        dd=dd_expand, mlp=mlp_value,
+        dd=dd_expand, mlp=mlp_value, ndf=nd_front,
         bench=bench, bench_twoply=bench_twoply, sweep=bench_r2_sweep, spmd=bench_spmd,
         roofline=roofline, trace_attr=trace_attr, cost=cost,
         sampling=sampling, stress=stress_movegen2, guard=twoply_decision_guard,
@@ -561,7 +572,7 @@ def phase_build(P):
     """One nvcc per kernel source, all started together."""
     fv, nd = P["fv"], P["nd"]
     kernels = (fv.KERNEL, nd.KERNEL, P["take"].KERNEL, P["stamp"].KERNEL, P["dd"].KERNEL,
-               P["mlp"].KERNEL)
+               P["mlp"].KERNEL, P["ndf"].KERNEL)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.load(), kernels))
@@ -578,7 +589,9 @@ def phase_build(P):
         f"{nd.KERNEL.lib.nd_tail_smem(nd.MAX_K)} B at K = {nd.MAX_K}; dd_expand "
         + ", ".join(f"{w}: {P['dd'].KERNEL.lib.dd_expand_game_bytes(*w)} B a game"
                     for w in DD_WIDTHS)
-        + f"; mlp_value {P['mlp'].KERNEL.lib.mlp_value_smem()} B a CTA")
+        + f"; mlp_value {P['mlp'].KERNEL.lib.mlp_value_smem()} B a CTA; nd_front "
+        + ", ".join(f"{g} games: {P['ndf'].KERNEL.lib.nd_front_smem_bytes(g)} B a block"
+                    for g in (1, 4, 8)))
     mma = sass_mma_count(fv.KERNEL.build_info["path"], "fused_value_kernel")
     log(f"[2 build] tensor-core instructions (HMMA/HGMMA) in fused_value_kernel's SASS: "
         f"{'not measured (no cuobjdump)' if mma is None else mma}")
@@ -739,6 +752,7 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
     _sync(dev)
     wall = time.perf_counter() - t0
     launches, nd_launches, dd_launches = _launched(P, since).values()
+    ndf_launches = _launched(P, since, ("nd_front",))["nd_front"]
     dev_ms = ev0.elapsed_time(ev1)
     traj = R.Transition(*(torch.stack(xs) for xs in zip(*ts)))
     b = state.player.shape[0]
@@ -753,6 +767,7 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
         "fused_value_launches": launches,
         "nd_tail_launches": nd_launches,
         "dd_expand_launches": dd_launches,
+        "nd_front_launches": ndf_launches,
         "games_finished": int(traj.done.sum()),
         "mean_legal_moves": float(traj.num_moves[traj.recorded].float().mean()),
         "overflow_count": int(traj.overflow.sum()),
@@ -764,6 +779,8 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
         "card": card,
     }
     log(f"[4 main path] {json.dumps(stats)}")
+    if ndf_launches != ND_FRONT_LAUNCHES_PER_STEP * STEPS:
+        raise AssertionError(f"nd_front launched {ndf_launches} times in {STEPS} steps")
     if launches != 2 * STEPS:
         raise AssertionError(f"fused_value launched {launches} times in {STEPS} steps")
     if dd_launches != DD_LAUNCHES_PER_STEP_1PLY * STEPS:
@@ -1129,6 +1146,7 @@ def phase_twoply_main(P, params, state, cfg, dev, gen, card):
     _sync(dev)
     wall = time.perf_counter() - t0
     fv_launches, nd_launches, dd_launches = _launched(P, since).values()
+    ndf_launches = _launched(P, since, ("nd_front",))["nd_front"]
     dev_ms = ev0.elapsed_time(ev1)
     traj = R.Transition(*(torch.stack(xs) for xs in zip(*ts)))
     b = state.player.shape[0]
@@ -1142,6 +1160,7 @@ def phase_twoply_main(P, params, state, cfg, dev, gen, card):
         "fused_value_launches": fv_launches,
         "nd_tail_launches": nd_launches,
         "dd_expand_launches": dd_launches,
+        "nd_front_launches": ndf_launches,
         "games_finished": int(traj.done.sum()),
         "mean_legal_moves": float(traj.num_moves[traj.recorded].float().mean()),
         "overflow_count": int(traj.overflow.sum()),
@@ -1153,6 +1172,8 @@ def phase_twoply_main(P, params, state, cfg, dev, gen, card):
         "card": card,
     }
     log(f"[10 main path 2-ply] {json.dumps(stats)}")
+    if ndf_launches != ND_FRONT_LAUNCHES_PER_STEP * STEPS_2PLY:
+        raise AssertionError(f"nd_front launched {ndf_launches} times in {STEPS_2PLY} steps")
     if nd_launches != ND_LAUNCHES_PER_STEP_2PLY * STEPS_2PLY:
         raise AssertionError(f"nd_tail launched {nd_launches} times in {STEPS_2PLY} steps")
     if fv_launches != FV_LAUNCHES_PER_STEP_2PLY * STEPS_2PLY:
@@ -3272,20 +3293,39 @@ def phase_roofline(P, dev, card):
     return dict(res, launches=launches)
 
 
+# phase 41's attribution, in an interpreter of its own: late in this long
+# process torch.profiler kept no record of the step's first hand-written
+# kernels (D3's and both of B2's tiers) in four tries of four, where a fresh
+# process records them all, as the GPU tests' attribution checks do
+_ATTR_CHILD = """
+import json, sys, torch
+from mlp_ppo_2ply_multi_tpu_torch.scripts import trace_attr
+from mlp_ppo_2ply_multi_tpu_torch.utils import profiling
+a = trace_attr.attribute(sys.argv[1], int(sys.argv[2]), torch.device("cuda", 0))
+n = profiling.kernel_launches()
+print(json.dumps(dict(a, launches={k: n.get(k, 0) for k in ("fused_value", "nd_tail")})))
+"""
+
+
 def phase_trace_attr(P, dev, card):
     """41: ``scripts.trace_attr.attribute`` of one eager step of ``prod`` at
-    B = 4096 and of ``twoply_tuned`` at B = 1024: every JAX stage the step
-    passes through owns device time in a tag; the top rows, the unscoped
-    share and the coverage against the step's device time queued behind a
-    spin kernel. The graphed step replays the same kernels."""
+    B = 4096 and of ``twoply_tuned`` at B = 1024, each in an interpreter of
+    its own: every JAX stage the step passes through owns device time in a
+    tag; the top rows, the unscoped share and the coverage against the
+    step's device time queued behind a spin kernel. The graphed step
+    replays the same kernels."""
     TA, prof = P["trace_attr"], P["profiling"]
-    fv, nd = P["fv"].KERNEL, P["nd"].KERNEL
     out = {}
     for name, batch, want in (("prod", B_PROD, STAGES_1PLY),
                               ("twoply_tuned", B_TWOPLY, STAGES_2PLY)):
-        fv.launches = nd.launches = 0
-        a = TA.attribute(name, batch, dev)
-        launches = {"fused_value": fv.launches, "nd_tail": nd.launches}
+        run = subprocess.run([sys.executable, "-c", _ATTR_CHILD, name, str(batch)], cwd=ROOT,
+                             capture_output=True, text=True, timeout=900,
+                             env={**os.environ, "PYTHONPATH": str(ROOT)})
+        if run.returncode != 0:
+            raise AssertionError(f"[41 trace_attr] {name}: exit {run.returncode}: "
+                                 f"{run.stderr[-3000:]}")
+        a = json.loads(run.stdout.strip().splitlines()[-1])
+        launches = a.pop("launches")
         for line in TA.report(name, batch, ATTR_TOP, a):
             log(f"[41 trace_attr] {line}")
         got = {p for t in a["stages"] for p in t.split("/") if prof.STAGE_RE.fullmatch(p)}
@@ -3390,6 +3430,95 @@ def phase_dd_expand(P, params, dev, gen, card):
                     bound_ms=sum(r["bound_ms"] for r in per))
         step["roofline"] = step["bound_ms"] / step["ms"]
         log(f"[43 dd_expand] {name} one step: {json.dumps(step)} {card}")
+        out[name] = dict(step, calls=per)
+    return out
+
+
+# phase 45: the non-doubles front kernel on the inputs of the benchmark cells' steps
+ND_FRONT_STEPS = (("1ply", B_PROD), ("2ply", B_TWOPLY))  # (path, batch)
+ND_FRONT_ITERS = 20
+
+
+def capture_nd_front_calls(P, params, cfg, batch, dev, gen):
+    """The (board, player, dice) of every ``movegen2.nd_front`` call of one
+    eager production step at ``batch``, ``DD_WARM_STEPS`` steps off the
+    opening."""
+    M, R = P["movegen2"], P["rollout"]
+    state = P["vec_env"].reset(batch, gen, device=dev)
+    state, _ = R.rollout_loop(params, state, 1.0, cfg, DD_WARM_STEPS, True, gen=gen, device=dev)
+    seen, real = [], M.nd_front
+
+    def keep(board, player, dice):
+        n = board.data.shape[0]
+        seen.append((P["board"].Board(board.data.clone()),
+                     torch.broadcast_to(torch.as_tensor(player, device=dev), (n,)).clone(),
+                     torch.broadcast_to(torch.as_tensor(dice, device=dev), (n, 2)).clone()))
+        return real(board, player, dice)
+
+    M.nd_front = keep
+    try:
+        R.rollout_step(params, state, 1.0, cfg, True, gen=gen, device=dev)
+    finally:
+        M.nd_front = real
+    _sync(dev)
+    return seen
+
+
+def phase_nd_front(P, params, dev, gen, card):
+    """45: the non-doubles front kernel (``ops.nd_front``) on the inputs of
+    one 1-ply production step (B = 4096) and one 2-ply step (B = 1024: its
+    own moves; the replies take precomputed passes): each call's five
+    outputs equal the plain chain's byte for byte (the largest difference
+    and the differing elements, both 0); each call timed with CUDA events
+    (plain, kernel, kernel, plain) beside its bound and launch plan; a
+    step's launches queued behind a spin kernel."""
+    M, F = P["movegen2"], P["ndf"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for name, batch in ND_FRONT_STEPS:
+        cfg = production_config(P) if name == "1ply" else twoply_config(P)
+        calls = capture_nd_front_calls(P, params, cfg, batch, dev, gen)
+        if [c[0].data.shape[0] for c in calls] != [batch] * ND_FRONT_LAUNCHES_PER_STEP:
+            raise AssertionError(f"[45 nd_front] {name}: calls of "
+                                 f"{[c[0].data.shape[0] for c in calls]} games a step")
+        per, kernel_calls = [], []
+        for board, player, dice in calls:
+            kern = functools.partial(M.nd_front, board, player, dice)
+            plain = functools.partial(M.nd_front_plain, board, player, dice)
+            before = F.KERNEL.launches
+            got, want = kern(), plain()
+            _sync(dev)
+            if F.KERNEL.launches != before + 1:
+                raise AssertionError(f"[45 nd_front] {name}: the kernel did not launch once")
+            diff = {}
+            for f, a, b in zip(("b1a", "b1b", "valid", "d_hi", "d_lo"), got, want):
+                a, b = getattr(a, "data", a).long(), getattr(b, "data", b).long()
+                if a.shape != b.shape:
+                    raise AssertionError(f"[45 nd_front] {name}: {f} {tuple(a.shape)} against "
+                                         f"the plain chain's {tuple(b.shape)}")
+                d = (a - b).abs()
+                diff[f] = (int(d.max()) if d.numel() else 0, int((d != 0).sum()))
+            max_abs = max(m for m, _ in diff.values())
+            differing = sum(c for _, c in diff.values())
+            if differing:
+                raise AssertionError(f"[45 nd_front] {name}: differs from the plain chain: {diff}")
+            p1, k1, k2, p2 = (_time_ms(f, dev, ND_FRONT_ITERS) for f in (plain, kern, kern, plain))
+            n = board.data.shape[0]
+            row = dict(plan=F.plan(n, sms), max_abs_err=max_abs, differing_elements=differing,
+                       candidates_per_game=float(got[2].float().sum(-1).mean()),
+                       events_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, runs_ms=[p1, k1, k2, p2],
+                       **F.bound(n))
+            per.append(row)
+            kernel_calls.append(kern)
+            log(f"[45 nd_front] {name}: {json.dumps(row)} {card}")
+        step = dict(batch=batch, calls_per_step=len(per),
+                    ms=_queued_ms_per_round(kernel_calls, dev),
+                    max_abs_err=max(r["max_abs_err"] for r in per),
+                    events_ms=sum(r["events_ms"] for r in per),
+                    plain_ms=sum(r["plain_ms"] for r in per),
+                    bound_ms=sum(r["bound_ms"] for r in per))
+        step["roofline"] = step["bound_ms"] / step["ms"]
+        log(f"[45 nd_front] {name} one step: {json.dumps(step)} {card}")
         out[name] = dict(step, calls=per)
     return out
 
@@ -3637,6 +3766,7 @@ def main() -> int:
     sweep = phase_sweep_and_spmd(P, dev, card)
     dd = phase_dd_expand(P, params, dev, gen, card)
     mlp = phase_mlp_value(P, dev, gen, card)
+    ndf = phase_nd_front(P, params, dev, gen, card)
     # the measurement tools' launches (phases 39-42), each run counted from 0
     # (bench_spmd's rank is a process of its own)
     bench_tools = {k: sum(r["launches"][k] for r in (*bench.values(), roof, *attr.values(),
@@ -3852,6 +3982,29 @@ def main() -> int:
         "library_ms": None,
         "paths": {k: {f: v[f] for f in ("launches", "rows", "ms", "every_row_ms", "events_ms",
                                          "plain_ms", "bound_ms")} for k, v in mlp.items()},
+        "ok": True,
+    })
+    # the main paths' eager runs (phases 4 and 10), each gated at one launch a
+    # step, and phase 45's calls
+    ndf_paths = {"1ply": stats["nd_front_launches"], "2ply": stats2["nd_front_launches"]}
+    kernels.append({
+        "name": "nd_front",
+        "route": "cuda",
+        "source": NDF_SOURCE,
+        "replaces": None,  # JAX runs the non-doubles front as plain XLA: no TPU kernel
+        "launches": sum(ndf_paths.values()),
+        # phase 45: the largest difference from the plain chain over the five
+        # outputs of the two steps' calls
+        "max_abs_err": max(v["max_abs_err"] for v in ndf.values()),
+        # the 1-ply step's one launch, queued behind a spin
+        "ms": ndf["1ply"]["ms"],
+        "plain_ms": ndf["1ply"]["plain_ms"],
+        "bound_ms": ndf["1ply"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "paths": {k: {"launches": n, **{f: ndf[k][f] for f in (
+            "calls_per_step", "ms", "events_ms", "plain_ms", "bound_ms", "roofline")}}
+            for k, n in ndf_paths.items()},
         "ok": True,
     })
     log(f"card: {smi}")

@@ -5,7 +5,9 @@ Port of ``mlp_ppo_2ply_multi_tpu/engine/movegen2.py`` (see its module
 docstring for the algorithms and their reference citations):
 
 * Non-doubles: two ordering passes over the 27-slot table give 1512
-  candidate cells whose index order IS the reference's insertion order. The
+  candidate cells whose index order IS the reference's insertion order
+  (the front, ``nd_front``: on a card one launch of the CUDA kernel
+  ``ops.nd_front``, on the CPU the plain chain ``nd_front_plain``). The
   valid ones are compacted in order, their afterstates built, duplicates
   dropped by canonical delta signature (first occurrence kept), then the
   max-submove filter and the Q7 cap apply. The tail runs two-tier (width
@@ -39,7 +41,8 @@ slots.
 Stages carry the JAX package's ``jax.named_scope`` names
 (``utils.profiling.scope``): nd_front, nd_tail, nd_tail_t1, nd_tail_t2,
 dd_L2-dd_L4 with slotv, sel and take inside each (the plain doubles chain),
-and mg_merge; on a card the doubles kernel runs in dd_L1.
+and mg_merge; on a card the doubles kernel runs in dd_L1 and the
+non-doubles front kernel in nd_front.
 """
 from __future__ import annotations
 
@@ -70,6 +73,7 @@ from mlp_ppo_2ply_multi_tpu_torch.engine.movegen import (
     slot_valid_stats,
 )
 from mlp_ppo_2ply_multi_tpu_torch.ops import dd_expand
+from mlp_ppo_2ply_multi_tpu_torch.ops import nd_front as nd_front_op
 from mlp_ppo_2ply_multi_tpu_torch.utils import cost, profiling
 from mlp_ppo_2ply_multi_tpu_torch.utils.profiling import scope
 
@@ -361,6 +365,42 @@ def _nd_candidates(
     return pa, pb, valid, d_hi, d_lo
 
 
+def nd_front(board: Board, player: torch.Tensor, dice: torch.Tensor):
+    """The front of the non-doubles enumeration, as far as the tail reads
+    it: ``_nd_candidates`` with no passes handed in, cut to (b1a, b1b:
+    Boards [..., 27] of each pass's children, valid bool [..., 1512], d_hi,
+    d_lo int64 [...]), over any batch shape (player and dice [..., 2]
+    broadcast).
+
+    On a card: one launch of the CUDA kernel (``ops.nd_front``) on the
+    flattened batch; on the CPU: the plain chain, ``nd_front_plain``. The
+    two give the same bytes in every output tensor, invalid children and
+    cells included; ``utils.cost`` counts either route by the kernel's
+    formula."""
+    bs = board.batch_shape
+    _, fb, fp, fd = _flatten_batch(board, player, dice, (2,))
+    n = fp.shape[0]
+    with cost.kernel("nd_front_kernel", lambda: {"bytes": nd_front_op.bound(n)["bytes"]}):
+        if fb.data.is_cuda:
+            b1a, b1b, valid, d_hi, d_lo = nd_front_op.launch_kernel(fb.data, fp, fd)
+            b1a, b1b = Board(data=b1a), Board(data=b1b)
+        else:
+            b1a, b1b, valid, d_hi, d_lo = nd_front_plain(fb, fp, fd)
+    kids = lambda b: Board(data=b.data.reshape(*bs, N_SLOTS, b.data.shape[-1]))
+    return (kids(b1a), kids(b1b), valid.reshape(*bs, valid.shape[-1]), d_hi.reshape(bs),
+            d_lo.reshape(bs))
+
+
+def nd_front_plain(board: Board, player: torch.Tensor, dice: torch.Tensor):
+    """``nd_front`` in plain PyTorch: the CPU path, and on a card the
+    kernel's oracle (each call there counts as the tracer's
+    ``nd_front_plain``). Returns (b1a, b1b, valid, d_hi, d_lo)."""
+    if board.data.is_cuda:
+        profiling.count("nd_front_plain")
+    pa, pb, valid, d_hi, d_lo = _nd_candidates(board, player, dice)
+    return pa.b1, pb.b1, valid, d_hi, d_lo
+
+
 class NdPlanes(NamedTuple):
     """The two-tier non-doubles tail's planes."""
 
@@ -414,8 +454,8 @@ def _tier_tail(
 
 def _nd_two_tier(
     board: Board,
-    pa: _Pass,
-    pb: _Pass,
+    b1a: Board,
+    b1b: Board,
     valid: torch.Tensor,
     player: torch.Tensor,
     d_hi: torch.Tensor,
@@ -425,13 +465,14 @@ def _nd_two_tier(
     """Tier 1 runs the tail at width T for every game (exact whenever
     n_pre <= T); tier 2 gathers the wide games into a batch/div sub-batch
     and runs the full-width tail there. A wide game beyond the sub-batch
-    keeps its tier-1 result and is flagged via overflow. Each tier is one
+    keeps its tier-1 result and is flagged via overflow. ``b1a`` and ``b1b``
+    are the children of the two passes (``nd_front``). Each tier is one
     ``_tier_tail`` call: one launch of B2 on a card with signature dedup."""
     K, T = cfg.nd_dedup_k, cfg.nd_tier
     n = valid.shape[0]
     with scope("nd_tail_t1"):
         after_n, keep_n, n_pre, pct_n = _tier_tail(
-            board, pa.b1, pb.b1, valid, player, d_hi, d_lo, T, cfg
+            board, b1a, b1b, valid, player, d_hi, d_lo, T, cfg
         )
     wide = n_pre > T
     wn = max(8, n // cfg.nd_wide_div)
@@ -439,8 +480,8 @@ def _nd_two_tier(
     with scope("nd_tail_t2"):
         after_w, keep_w, _, pct_w = _tier_tail(
             _take0(board, sel),
-            _take0(pa.b1, sel),
-            _take0(pb.b1, sel),
+            _take0(b1a, sel),
+            _take0(b1b, sel),
             valid[sel] & sel_ok[:, None],
             player[sel],
             d_hi[sel],
@@ -463,7 +504,9 @@ def enumerate_nondoubles(
 ) -> MoveSet:
     """Sortless non-doubles enumeration in exact reference order
     (generate_all_moves.py:25-53). ``passes`` supplies precomputed
-    (high-first, low-first) passes from ``die_tables`` (the 2-ply scorer).
+    (high-first, low-first) passes from ``die_tables`` (the 2-ply scorer),
+    whose front is then ``_nd_candidates``; without them the front is
+    ``nd_front`` (the CUDA kernel on a card), in scope ``nd_front`` either way.
 
     The tail runs two-tier when ``0 < nd_tier < nd_dedup_k`` on a flat batch
     (``_nd_two_tier``, scopes ``nd_tail_t1`` and ``nd_tail_t2``). Else it is
@@ -475,10 +518,14 @@ def enumerate_nondoubles(
     Gram dedup (``nd_sig_dedup=False``) the plain ``_nd_tail`` on any
     device, as JAX runs it there (the kernel dedups by signature only)."""
     with scope("nd_front"):
-        pa, pb, valid, d_hi, d_lo = _nd_candidates(board, player, dice, passes)
+        if passes is None:
+            b1a, b1b, valid, d_hi, d_lo = nd_front(board, player, dice)
+        else:
+            pa, pb, valid, d_hi, d_lo = _nd_candidates(board, player, dice, passes)
+            b1a, b1b = pa.b1, pb.b1
     K, T = cfg.nd_dedup_k, cfg.nd_tier
     if T and T < K and valid.dim() == 2:
-        pl = _nd_two_tier(board, pa, pb, valid, player, d_hi, d_lo, cfg)
+        pl = _nd_two_tier(board, b1a, b1b, valid, player, d_hi, d_lo, cfg)
         narrow = _pad_entries(MoveSet(pl.after_n, pl.keep_n, None), K)
         after = board_where(pl.in_sub[:, None], _take0(pl.after_w, pl.slot), narrow.boards)
         keep = torch.where(pl.in_sub[:, None], pl.keep_w[pl.slot], narrow.valid)
@@ -493,7 +540,7 @@ def enumerate_nondoubles(
         cells = board.data.shape[-1]
         with scope("nd_tail"):
             after, keep, n_pre, pct = _tier_tail(
-                flat(board, cells), flat(pa.b1, N_SLOTS, cells), flat(pb.b1, N_SLOTS, cells),
+                flat(board, cells), flat(b1a, N_SLOTS, cells), flat(b1b, N_SLOTS, cells),
                 valid.reshape(n, valid.shape[-1]), row(player), row(d_hi), row(d_lo), K, cfg,
             )
         after = Board(data=after.data.reshape(*bs, K, cells))
@@ -936,8 +983,8 @@ def legal_moves_split(
     is_double = dice[:, 0] == dice[:, 1]
 
     with scope("nd_front"):
-        pa, pb, valid_cells, d_hi, d_lo = _nd_candidates(board, player, dice)
-    pl = _nd_two_tier(board, pa, pb, valid_cells, player, d_hi, d_lo, cfg)
+        b1a, b1b, valid_cells, d_hi, d_lo = nd_front(board, player, dice)
+    pl = _nd_two_tier(board, b1a, b1b, valid_cells, player, d_hi, d_lo, cfg)
 
     w_dd = max(8, -(-n // cfg.dd_subbatch_div))
     sel_idx, sel_ok = _select_set_bits(is_double, w_dd)

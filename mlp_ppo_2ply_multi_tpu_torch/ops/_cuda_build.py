@@ -71,6 +71,18 @@ def build(src: Path) -> Tuple[Path, Dict[str, object]]:
     return so, {"path": str(so), "cached": False, "seconds": secs, "ptxas": ptxas}
 
 
+_SMS: Dict[int, int] = {}  # device index -> SM count
+
+
+def sm_count(dev: torch.device) -> int:
+    """The SM count of a card, read once a device (the launch planners
+    spread small batches over the SMs)."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """Contiguous and 16-byte aligned, as the kernels' 16-byte loads need (a
     fresh copy where it is not)."""

@@ -31,7 +31,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import CudaKernel
+from mlp_ppo_2ply_multi_tpu_torch.ops._cuda_build import CudaKernel, sm_count
 from mlp_ppo_2ply_multi_tpu_torch.utils.cost import HBM_BYTES_PER_S
 
 N_CELLS = 52
@@ -136,16 +136,6 @@ def bound(n: int, widths: Widths) -> Dict[str, object]:
                 bound_by="bytes")
 
 
-_SMS: Dict[int, int] = {}  # device index -> SM count
-
-
-def _sms(dev: torch.device) -> int:
-    i = dev.index if dev.index is not None else torch.cuda.current_device()
-    if i not in _SMS:
-        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
-    return _SMS[i]
-
-
 def _rows(x, n: int, dev: torch.device) -> torch.Tensor:
     """An int64 [n] view of a per-game integer (a stride-0 broadcast stays one)."""
     t = torch.as_tensor(x, device=dev)
@@ -168,7 +158,7 @@ def launch_kernel(board: torch.Tensor, player, die, widths: Widths
                          f"{getattr(board, 'dtype', type(board))} {tuple(getattr(board, 'shape', ()))}")
     if not board.is_cuda:
         raise ValueError(f"the dd_expand kernel runs on cuda, board is on {board.device}")
-    p = plan(board.shape[0], widths, _sms(board.device))  # checks the widths
+    p = plan(board.shape[0], widths, sm_count(board.device))  # checks the widths
     dev = board.device
     n = board.shape[0]
     if board.stride(1) != 1:

@@ -30,13 +30,14 @@ bounded, while ``MLP_PPO_TORCH_TRACE`` is not ``0`` (the default records):
   each kernel of the launch registry (``KERNELS``: every hand-written
   kernel registers itself) that has a ``counter`` name, read as the update
   opens and closes (``dd_kernel_launches``, ``nd_tail_kernel_launches``,
-  ``mlp_kernel_launches``); the growth of a registered kernel's device
-  counters (D2's ``mlp_rows_needed`` and ``mlp_rows_computed``: the rows
-  its callers needed valued and the rows it computed, int64 tensors it
-  adds to), copied out without a wait as each update closes and read with
-  the update's rows; and what the program counts by name (``count``: the
-  plain doubles chain's calls on a card, ``dd_plain``, and the plain
-  tail's runs on a card, ``nd_tail_plain``).
+  ``mlp_kernel_launches``, ``nd_front_kernel_launches``); the growth of a
+  registered kernel's device counters (D2's ``mlp_rows_needed`` and
+  ``mlp_rows_computed``: the rows its callers needed valued and the rows
+  it computed, int64 tensors it adds to), copied out without a wait as
+  each update closes and read with the update's rows; and what the
+  program counts by name (``count``: the plain doubles chain's calls on a
+  card, ``dd_plain``, the plain tail's runs on a card, ``nd_tail_plain``,
+  and the plain non-doubles front's, ``nd_front_plain``).
 
 The launch registry (``KERNELS``, and the stamp writer ``CLOCK``) sits in
 this, the lowest layer, so that nothing below the kernels imports them.
@@ -373,14 +374,16 @@ SETUP_SPANS = {"capture": "captures", "build": "builds"}  # one-time work, and i
 STAMP_KERNEL = "stamp_kernel"  # ``ops.stamp``'s kernel, by its name in a profiler trace
 KINDS = {"step": 1, "launch": 2, "learner": 3}  # a row's kind, in its last column
 # counters that ``trace_summary`` reads by update: the launches of the
-# kernels registered with these ``counter`` names (the doubles kernel, B2 and
-# D2; read as each update opens and closes, and 0 while a kernel is not
-# loaded), the plain doubles chain's and the plain tail's runs on a card
-# (``count``), and D2's rows needed and computed (its ``device_counters``)
-LAUNCH_COUNTERS = ("dd_kernel_launches", "nd_tail_kernel_launches", "mlp_kernel_launches")
+# kernels registered with these ``counter`` names (the doubles kernel, B2, D2
+# and the non-doubles front D3; read as each update opens and closes, and 0
+# while a kernel is not loaded), the plain doubles chain's, the plain tail's
+# and the plain front's runs on a card (``count``), and D2's rows needed and
+# computed (its ``device_counters``)
+LAUNCH_COUNTERS = ("dd_kernel_launches", "nd_tail_kernel_launches", "mlp_kernel_launches",
+                   "nd_front_kernel_launches")
 UPDATE_COUNTERS = ("dd_kernel_launches", "dd_plain", "nd_tail_kernel_launches",
                    "nd_tail_plain", "mlp_kernel_launches", "mlp_rows_needed",
-                   "mlp_rows_computed")
+                   "mlp_rows_computed", "nd_front_kernel_launches", "nd_front_plain")
 
 
 def tracing() -> bool:

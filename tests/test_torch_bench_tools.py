@@ -40,7 +40,7 @@ from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
 from mlp_ppo_2ply_multi_tpu_torch.model import value_net
 from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
-from mlp_ppo_2ply_multi_tpu_torch.ops import dd_expand, fused_value, mlp_value, take_rows
+from mlp_ppo_2ply_multi_tpu_torch.ops import dd_expand, fused_value, mlp_value, nd_front, take_rows
 from mlp_ppo_2ply_multi_tpu_torch.scripts import (
     bench,
     bench_r2_sweep,
@@ -293,6 +293,8 @@ def _kernel_calls():
                torch.arange(6) % 6 + 1, dd_cfg)
     deep = value_net.init_params(ModelConfig.wildbg(), g, "cpu")
     mask = torch.rand(64, generator=g) < 0.5
+    nd_front_args = (Board(vec_env.reset(6, g, "cpu").board.data), torch.arange(6) % 2,
+                     torch.tensor([[6, 1], [5, 3], [2, 4], [1, 1], [3, 6], [4, 2]]))
     return {
         "fused_value_kernel": (
             fused_value, "fused_value_plain", lambda: fused_value.fused_value(boards, flag, params),
@@ -313,11 +315,14 @@ def _kernel_calls():
             lambda: fused_value.fused_value(boards, flag, deep, mask),
             {"flops": mlp_value.bound(int(mask.sum()))["ops"],
              "bytes": mlp_value.bound(int(mask.sum()))["bytes"]}),
+        "nd_front_kernel": (
+            movegen2, "nd_front_plain", lambda: movegen2.nd_front(*nd_front_args),
+            {"bytes": nd_front.bound(6)["bytes"]}),
     }
 
 
 @pytest.mark.parametrize("kernel", ["fused_value_kernel", "nd_tail_kernel", "take_rows_kernel",
-                                    "dd_expand_kernel", "mlp_value_kernel"])
+                                    "dd_expand_kernel", "mlp_value_kernel", "nd_front_kernel"])
 def test_kernels_counted_once_by_formula_whatever_the_route(kernel, monkeypatch):
     mod, plain_name, call, want = _kernel_calls()[kernel]
     want = {**dict.fromkeys(cost.COUNTS, 0.0), **want, "ops": 1.0}

@@ -42,7 +42,7 @@ from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
 from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
 from mlp_ppo_2ply_multi_tpu_torch.model import value_net
-from mlp_ppo_2ply_multi_tpu_torch.ops import dd_expand
+from mlp_ppo_2ply_multi_tpu_torch.ops import _cuda_build, dd_expand
 from mlp_ppo_2ply_multi_tpu_torch.oracle.sampling import sample_cases
 from mlp_ppo_2ply_multi_tpu_torch.utils import profiling as P
 from tests.test_torch_graph_gpu import _assert_same, _production
@@ -186,7 +186,7 @@ def test_game_counts_off_the_block_size(n, name):
     dev = _card()
     board, player, die = _sampled(n, 100 + n, dev)
     cfg = WIDTHS[name]
-    p = dd_expand.plan(n, dd_expand.widths_of(cfg), dd_expand._sms(dev))
+    p = dd_expand.plan(n, dd_expand.widths_of(cfg), _cuda_build.sm_count(dev))
     got, want = _both_routes(board, player, die, cfg)
     _assert_equal(got, want, f"{name} n={n} plan={p}")
 

@@ -1,7 +1,7 @@
 """The one seam of every hand-written kernel (``ops._cuda_build.CudaKernel``)
 and the launch registry of the tracer (``utils.profiling``), on the CPU.
 
-* Each of the six kernels launches inside its dispatcher op
+* Each of the seven kernels launches inside its dispatcher op
   ``mlp_ppo_torch::<name>``: defined once, from a schema whose outputs are
   written in place, with no CPU body.
 * The tracer counts, by update, the launches (eager and replayed) of each
@@ -24,12 +24,13 @@ import torch
 
 from mlp_ppo_2ply_multi_tpu_torch.experimental import nd_tail
 from mlp_ppo_2ply_multi_tpu_torch.ops import (_cuda_build, dd_expand, fused_value, mlp_value,
-                                              stamp, take_rows)
+                                              nd_front, stamp, take_rows)
 from mlp_ppo_2ply_multi_tpu_torch.utils import profiling as P
 
 PKG = Path(__file__).resolve().parents[1] / "mlp_ppo_2ply_multi_tpu_torch"
 MODULES = {"fused_value": fused_value, "nd_tail": nd_tail, "dd_expand": dd_expand,
-           "mlp_value": mlp_value, "take_rows": take_rows, "stamp": stamp}
+           "mlp_value": mlp_value, "take_rows": take_rows, "stamp": stamp,
+           "nd_front": nd_front}
 # the outputs each op writes in place
 OUTPUTS = {
     "fused_value": ("Tensor(a!) out",),
@@ -40,10 +41,12 @@ OUTPUTS = {
     "mlp_value": ("Tensor(a!) out", "Tensor(b!) count"),
     "take_rows": ("Tensor(a!) out",),
     "stamp": ("Tensor(a!) ring", "Tensor(b!) cursor"),
+    "nd_front": ("Tensor(a!) b1a", "Tensor(b!) b1b", "Tensor(c!) valid", "Tensor(d!) d_hi",
+                 "Tensor(e!) d_lo"),
 }
 # the update counter of each kernel's launches (the record's names)
 COUNTER = {"dd_expand": "dd_kernel_launches", "nd_tail": "nd_tail_kernel_launches",
-           "mlp_value": "mlp_kernel_launches"}
+           "mlp_value": "mlp_kernel_launches", "nd_front": "nd_front_kernel_launches"}
 
 
 @pytest.mark.parametrize("name", list(MODULES))
@@ -111,13 +114,13 @@ def test_a_kernel_loaded_inside_an_update_counts_from_0(monkeypatch, tmp_path):
     P.trace_flush()
     (rec,) = P.trace_records()
     assert rec["counters"] == {"dd_kernel_launches": 3, "nd_tail_kernel_launches": 0,
-                               "mlp_kernel_launches": 0}
+                               "mlp_kernel_launches": 0, "nd_front_kernel_launches": 0}
     P.TRACER.reset()
 
 
-@pytest.mark.parametrize("name", ["dd_plain", "nd_tail_plain"])
+@pytest.mark.parametrize("name", ["dd_plain", "nd_tail_plain", "nd_front_plain"])
 def test_plain_calls_counted_by_update(name, monkeypatch):
-    """The plain doubles chain's and the plain tail's runs on a card
+    """The plain doubles chain's, the plain tail's and the plain front's runs on a card
     (``profiling.count``) land in their update's record and in
     ``trace_summary``; with tracing off the tracer keeps nothing."""
     monkeypatch.setenv(P.TRACE_ENV, "1")

@@ -434,7 +434,7 @@ def test_tesauros_net_leaves_d2s_counters_alone(monkeypatch):
     P.trace_flush()
     (rec,) = P.trace_records()
     assert rec["counters"] == {"dd_kernel_launches": 0, "nd_tail_kernel_launches": 0,
-                               "mlp_kernel_launches": 0}
+                               "mlp_kernel_launches": 0, "nd_front_kernel_launches": 0}
     assert M.KERNEL.launches == launches
     assert all(torch.equal(before[k], v) for k, v in M.counter_tensors().items() if k in before)
     P.TRACER.reset()
