@@ -97,19 +97,20 @@ Phases, in order; any failure exits non-zero:
 16. train, 1-ply: ``apps.train.main`` with --production --mode continuous
     --td-mode side0 --batch-games 4096 --steps-per-update 64 --updates 4
     --checkpoint-every 1: 4 metrics lines with finite loss, exactly
-    2 x 256 fused_value, 2 x 256 nd_tail and 256 dd_expand launches, the last
+    2 x 256 fused_value, 2 x 256 nd_tail, 256 dd_expand and 256 nd_front
+    launches, the last
     checkpoint restored bitwise on
     the card (params, Adam, version 4, generator state), and fused_value
     against its plain version on the trained params (the packed-params
     cache followed the in-place updates); ms an update, env-steps/s while
     training, the learner's share, peak memory;
 17. train, 2-ply: --two-ply --production, B = 1024, 8 steps an update, 2
-    updates: exactly 17 nd_tail, 22 fused_value and 7 dd_expand launches a
-    step, finite loss;
+    updates: exactly 17 nd_tail, 22 fused_value, 7 dd_expand and 1
+    nd_front launches a step, finite loss;
 18. train, sync: --mode sync --production --per-episode-updates, B = 256,
     1 update (one 300-step rollout, then 256 sequential Adam steps): one
     metrics line of finite values at episode count 256, 2 fused_value, 2
-    nd_tail and 1 dd_expand launches a step;
+    nd_tail, 1 dd_expand and 1 nd_front launches a step;
 19. no sync: one eager 1-ply (B = 4096) and one 2-ply (B = 1024) step with
     the noise drawn ahead under ``torch.cuda.set_sync_debug_mode("error")``:
     no op of the step synchronises the host with the card;
@@ -118,10 +119,10 @@ Phases, in order; any failure exits non-zero:
     from the same state and generator seed: every integer and bool field of
     the trajectory and the final state bit-equal, max |dv| printed; again
     after one ``td.update`` of the same params tensors; 2 fused_value, 2
-    nd_tail and 1 dd_expand launches a step, counted by replay;
+    nd_tail, 1 dd_expand and 1 nd_front launches a step, counted by replay;
 21. graphed vs eager, 2-ply: 8 steps at chunk 4, both kernels inside the
-    graph, bit-equal; 22 fused_value, 17 nd_tail and 7 dd_expand launches
-    a step;
+    graph, bit-equal; 22 fused_value, 17 nd_tail, 7 dd_expand and 1
+    nd_front launches a step;
 22. graphed times: ms a step and env-steps/s of replays at chunk 1, 4 and
     16 (1-ply) and 1 and 4 (2-ply), each with its capture + instantiate
     seconds, its memory pool's bytes, the device's busy ms a step and idle
@@ -167,8 +168,8 @@ Phases, in order; any failure exits non-zero:
 29. the mesh train step: (a) ``apps.train.main`` with --production
     --fused-rollout --data 1 --model 1 (B = 4096, 3 updates of 64 steps) on
     a one-rank NCCL group: 3 finite metrics lines with JAX's mesh keys,
-    exactly 2 x 64 fused_value, 2 x 64 nd_tail and 64 dd_expand launches an
-    update, the
+    exactly 2 x 64 fused_value, 2 x 64 nd_tail, 64 dd_expand and 64
+    nd_front launches an update, the
     first update equal
     to the single-card loop's from the same state, games and generator
     (integer trajectory bit-equal, params at phase 15's tolerances), its ms
@@ -180,8 +181,9 @@ Phases, in order; any failure exits non-zero:
     (c) ``--remote-dir`` exits 2 naming fsspec where fsspec does not
     import; (d) the ring buffer's pushes and samples on the card with no
     host sync, a push replayed in a CUDA graph, and the tracer's record of
-    a graphed rollout (launch wait + stage ms of the stamped steps x steps)
-    within 10% of CUDA events around it;
+    a graphed rollout (each chunk's input copies, stamped step x its steps
+    and tail, and the gaps between chunks) within 10% of CUDA events around
+    it;
 30. the tiered 1-ply step (``apps.train``'s --production --tiered config):
     card vs CPU at B = 256 (every ``Tiered`` field bit-equal, boards at
     valid slots; integer state on agreeing decisions); fused_value at
@@ -238,9 +240,8 @@ Phases, in order; any failure exits non-zero:
     both steps' achieved fractions at most 1.05; one 1-ply step's count
     (``utils.cost``) on the card equal to the CPU's;
 41. ``scripts.trace_attr`` of the 1-ply step at B = 4096 and the tuned 2-ply
-    step at B = 1024, each in an interpreter of its own: every JAX stage the
-    step passes through owns device time; the top stages, the unscoped share
-    and the coverage;
+    step at B = 1024: every JAX stage the step passes through owns device
+    time; the top stages, the unscoped share and the coverage;
 42. ``scripts.bench_r2_sweep`` over prod, prod_gram, tiered and
     twoply_tuned (exit 0, a line each), tier0 refused (exit 1, named), and
     ``scripts.bench_spmd`` at n = 1 on a one-rank NCCL group;
@@ -264,8 +265,8 @@ Phases, in order; any failure exits non-zero:
     queued behind a spin;
 
 then the kernels line (launches summed over every path's timed run; the
-doubles kernel's over the main paths' runs of phases 4, 10, 16-18 and
-20-22 and 29a, each gated) and the
+doubles and the non-doubles front kernels' over the main paths' runs of
+phases 4, 10, 16-18 and 20-22 and 29a, each gated) and the
 result line. Phases 4, 7, 10 and 13 time the eager step; the training runs
 (16-18) go through the graphed rollouts, as ``apps.train`` does.
 
@@ -751,8 +752,7 @@ def phase_main_path(P, params, state, cfg, dev, gen, card):
     ev1.record()
     _sync(dev)
     wall = time.perf_counter() - t0
-    launches, nd_launches, dd_launches = _launched(P, since).values()
-    ndf_launches = _launched(P, since, ("nd_front",))["nd_front"]
+    launches, nd_launches, dd_launches, ndf_launches = _launched(P, since).values()
     dev_ms = ev0.elapsed_time(ev1)
     traj = R.Transition(*(torch.stack(xs) for xs in zip(*ts)))
     b = state.player.shape[0]
@@ -1145,8 +1145,7 @@ def phase_twoply_main(P, params, state, cfg, dev, gen, card):
     ev1.record()
     _sync(dev)
     wall = time.perf_counter() - t0
-    fv_launches, nd_launches, dd_launches = _launched(P, since).values()
-    ndf_launches = _launched(P, since, ("nd_front",))["nd_front"]
+    fv_launches, nd_launches, dd_launches, ndf_launches = _launched(P, since).values()
     dev_ms = ev0.elapsed_time(ev1)
     traj = R.Transition(*(torch.stack(xs) for xs in zip(*ts)))
     b = state.player.shape[0]
@@ -1502,7 +1501,8 @@ def phase_train_1ply(P, dev, gen, card):
         raise AssertionError(f"[16 train 1-ply] metrics lines: {stats['updates']}, {stats['loss']}")
     if stats["launches"] != {"fused_value": 2 * steps,
                              "nd_tail": ND_LAUNCHES_PER_STEP_1PLY * steps,
-                             "dd_expand": DD_LAUNCHES_PER_STEP_1PLY * steps}:
+                             "dd_expand": DD_LAUNCHES_PER_STEP_1PLY * steps,
+                             "nd_front": ND_FRONT_LAUNCHES_PER_STEP * steps}:
         raise AssertionError(f"[16 train 1-ply] launched {stats['launches']} in {steps} steps")
     bitwise = (_states_equal(P, restored, saved["state"]) and int(restored.version) == 4
                and torch.equal(gen_state, saved["gen"]) and step == saved["step"])
@@ -1541,7 +1541,8 @@ def phase_train_2ply(P, dev, card):
     log(f"[17 train 2-ply] {json.dumps(stats)}")
     want = {"fused_value": FV_LAUNCHES_PER_STEP_2PLY * steps,
             "nd_tail": ND_LAUNCHES_PER_STEP_2PLY * steps,
-            "dd_expand": DD_LAUNCHES_PER_STEP_2PLY * steps}
+            "dd_expand": DD_LAUNCHES_PER_STEP_2PLY * steps,
+            "nd_front": ND_FRONT_LAUNCHES_PER_STEP * steps}
     if stats["updates"] != 2 or stats["launches"] != want:
         raise AssertionError(f"[17 train 2-ply] {stats['updates']} updates, launches "
                              f"{stats['launches']}, want {want}")
@@ -1557,7 +1558,8 @@ def phase_train_sync(P, dev, card):
     if stats["updates"] != 1 or not finite or stats["episode_count"] != 256:
         raise AssertionError("[18 train sync] bad metrics line")
     if stats["launches"] != {"fused_value": 2 * 300, "nd_tail": ND_LAUNCHES_PER_STEP_1PLY * 300,
-                             "dd_expand": DD_LAUNCHES_PER_STEP_1PLY * 300}:
+                             "dd_expand": DD_LAUNCHES_PER_STEP_1PLY * 300,
+                             "nd_front": ND_FRONT_LAUNCHES_PER_STEP * 300}:
         raise AssertionError(f"[18 train sync] launched {stats['launches']} in 300 steps")
     return stats
 
@@ -1638,7 +1640,7 @@ def eager_and_graphed(P, params, cfg, batch, steps, chunk, seed, dev):
     return out[0], out[1], _launched(P, since)
 
 
-def _launched(P, since, names=("fused_value", "nd_tail", "dd_expand")):
+def _launched(P, since, names=("fused_value", "nd_tail", "dd_expand", "nd_front")):
     """Each kernel's launches since the launch registry's snapshot ``since``
     (``profiling.kernel_launches``), by name."""
     now = P["profiling"].kernel_launches()
@@ -1664,6 +1666,7 @@ def phase_graph_vs_eager_1ply(P, dev, card):
     _gate(launches["fused_value"], 2 * steps, "graphed 1-ply fused_value")
     _gate(launches["dd_expand"], DD_LAUNCHES_PER_STEP_1PLY * steps, "graphed 1-ply dd_expand")
     _gate(launches["nd_tail"], ND_LAUNCHES_PER_STEP_1PLY * steps, "graphed 1-ply nd_tail")
+    _gate(launches["nd_front"], ND_FRONT_LAUNCHES_PER_STEP * steps, "graphed 1-ply nd_front")
     start = td.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)._replace(
         params=params, opt_state=td.init_adam(params))
     trained, metrics = td.update(start, graphed[1], cfg, dev)
@@ -1676,6 +1679,8 @@ def phase_graph_vs_eager_1ply(P, dev, card):
           "graphed 1-ply dd_expand after an update")
     _gate(launches2["nd_tail"], ND_LAUNCHES_PER_STEP_1PLY * steps,
           "graphed 1-ply nd_tail after an update")
+    _gate(launches2["nd_front"], ND_FRONT_LAUNCHES_PER_STEP * steps,
+          "graphed 1-ply nd_front after an update")
     # the update moved the values, so a graph still reading the old packed
     # G would have taken other decisions
     boards, flag = eager2[1].packed_board[0], 1 - eager2[1].player[0]
@@ -1685,7 +1690,8 @@ def phase_graph_vs_eager_1ply(P, dev, card):
     stats = dict(batch=B_PROD, steps=steps, chunk=chunk, launches=launches["fused_value"],
                  launches_after_update=launches2["fused_value"],
                  dd_launches=launches["dd_expand"] + launches2["dd_expand"],
-                 nd_launches=launches["nd_tail"] + launches2["nd_tail"], max_abs_dv=dv,
+                 nd_launches=launches["nd_tail"] + launches2["nd_tail"],
+                 ndf_launches=launches["nd_front"] + launches2["nd_front"], max_abs_dv=dv,
                  after_update_max_abs_dv=dv2, loss=float(metrics["loss"]),
                  values_moved_by_update=moved, games_finished=int(graphed[1].done.sum()),
                  card=card)
@@ -1706,7 +1712,8 @@ def phase_graph_vs_eager_2ply(P, dev, card):
     dv = compare_rollouts(eager, graphed, "graphed vs eager 2-ply")
     _gate(launches, {"fused_value": FV_LAUNCHES_PER_STEP_2PLY * steps,
                      "nd_tail": ND_LAUNCHES_PER_STEP_2PLY * steps,
-                     "dd_expand": DD_LAUNCHES_PER_STEP_2PLY * steps}, "graphed 2-ply")
+                     "dd_expand": DD_LAUNCHES_PER_STEP_2PLY * steps,
+                     "nd_front": ND_FRONT_LAUNCHES_PER_STEP * steps}, "graphed 2-ply")
     stats = dict(batch=B_TWOPLY, steps=steps, chunk=chunk, launches=launches, max_abs_dv=dv,
                  card=card)
     log(f"[21 graph vs eager 2-ply] every integer and bool field bit-equal: {json.dumps(stats)}")
@@ -1751,10 +1758,10 @@ def phase_graph_times(P, dev, card):
     for name, cfg, batch, steps, chunks, per_step in (
         ("1ply", production_config(P), B_PROD, GRAPH_STEPS_1PLY, (1, 4, 16),
          {"fused_value": 2, "nd_tail": ND_LAUNCHES_PER_STEP_1PLY,
-          "dd_expand": DD_LAUNCHES_PER_STEP_1PLY}),
+          "dd_expand": DD_LAUNCHES_PER_STEP_1PLY, "nd_front": ND_FRONT_LAUNCHES_PER_STEP}),
         ("2ply", twoply_config(P), B_TWOPLY, STEPS_2PLY, (1, 4),
          {"fused_value": FV_LAUNCHES_PER_STEP_2PLY, "nd_tail": ND_LAUNCHES_PER_STEP_2PLY,
-          "dd_expand": DD_LAUNCHES_PER_STEP_2PLY}),
+          "dd_expand": DD_LAUNCHES_PER_STEP_2PLY, "nd_front": ND_FRONT_LAUNCHES_PER_STEP}),
     ):
         temp = cfg.train.initial_temperature
         gen = torch.Generator(device=dev).manual_seed(14)
@@ -2316,7 +2323,8 @@ def phase_mesh_cli(P, dev, card, train1):
             raise AssertionError(f"[29 mesh] metrics line {ln}")
     if stats["launches"] != {"fused_value": 2 * steps,
                              "nd_tail": ND_LAUNCHES_PER_STEP_1PLY * steps,
-                             "dd_expand": DD_LAUNCHES_PER_STEP_1PLY * steps}:
+                             "dd_expand": DD_LAUNCHES_PER_STEP_1PLY * steps,
+                             "nd_front": ND_FRONT_LAUNCHES_PER_STEP * steps}:
         raise AssertionError(f"[29 mesh] launched {stats['launches']} in {steps} steps")
     cfg = kept["cfg"]
     gen = torch.Generator(device=dev)
@@ -2435,9 +2443,10 @@ def phase_ring_and_profile(P, dev, gen, card):
     sync-debug "error"; a push captured in a CUDA graph and replayed), and
     the tracer's record of a graphed 1-ply rollout (16 steps, chunk 4,
     B = 4096): every row read (none lost or stale: the host's count of the
-    graph's rows is the card's cursor), and the launch wait plus the
-    stamped steps' mean stage ms times 16 agrees with CUDA events around the
-    call within 10%."""
+    graph's rows is the card's cursor), and the chunks' stamped parts (each
+    chunk's input copies with any wait for its launch, its stamped step's
+    stage ms times its 4 steps, its tail, and the gap since the last
+    chunk's tail) sum to within 10% of CUDA events around the call."""
     RB, PR, R = P["ring"], P["profiling"], P["rollout"]
     mk = lambda: {"boards": torch.randint(0, 16, (B_PROD, 52), generator=gen, device=dev
                                           ).to(torch.int8),
@@ -2491,22 +2500,26 @@ def phase_ring_and_profile(P, dev, gen, card):
         PR.trace_flush()  # no learner follows: close the update's record
         _sync(dev)
         rec = PR.trace_records()[-1]
-        if (rec["lost_rows"], rec["stale_rows"], len(rec["stages"])) != (0, 0, 4) \
-                or rec["launch_wait_ms"] is None:
-            raise AssertionError(f"[29 ring] the tracer's record of 4 chunks (a stamped step "
-                                 f"each, a launch row) is not whole: {rec}")
-        step_ms = [sum(st.values()) for st in rec["stages"]]
-        traced = rec["launch_wait_ms"] + sum(step_ms) / len(step_ms) * 16
-        pairs.append((traced, e0.elapsed_time(e1)))
-    traced_ms, ev_ms = sorted(pairs)[2]
+        chunks = rec["chunks"]
+        if (rec["lost_rows"], rec["stale_rows"], len(rec["stages"]), len(chunks)) \
+                != (0, 0, 4, 4) or rec["launch_wait_ms"] is None:
+            raise AssertionError(f"[29 ring] the tracer's record of 4 chunks (a replay row, a "
+                                 f"stamped step and a tail each, a launch row) is not whole: "
+                                 f"{rec}")
+        parts = {k: sum(c[k] or 0.0 for c in chunks) for k in ("inputs", "step", "tail", "gap")}
+        traced = parts["inputs"] + 4 * parts["step"] + parts["tail"] + parts["gap"]
+        pairs.append((traced, e0.elapsed_time(e1), parts, rec["launch_wait_ms"]))
+    traced_ms, ev_ms, parts, wait = sorted(pairs, key=lambda p: p[0])[2]
     ops = PR.device_op_times(graphed_rollout)
     P["graphs"].clear_graphs()
     out = dict(traced_ms=traced_ms, events_ms=ev_ms, rel=abs(traced_ms - ev_ms) / ev_ms,
-               pairs_ms=pairs, device_ops=len(ops), device_ms=sum(ops.values()),
-               top_ops={k[:60]: v for k, v in list(ops.items())[:5]})
+               parts_ms=parts, launch_wait_ms=wait,
+               pairs_ms=[p[:2] for p in pairs], device_ops=len(ops),
+               device_ms=sum(ops.values()), top_ops={k[:60]: v for k, v in list(ops.items())[:5]})
     log(f"[29 ring] ring buffer: 10 pushes, 64 samples, no host sync; a push captured "
-        f"and replayed 3 times; the tracer's rollout record (launch wait + stamped steps' "
-        f"stage ms x 16) vs events: {json.dumps(out)} {card}")
+        f"and replayed 3 times; the tracer's rollout record (each chunk's input copies + "
+        f"stamped step x 4 + tail, and the gaps between chunks) vs events: "
+        f"{json.dumps(out)} {card}")
     if out["rel"] > 0.10:
         raise AssertionError(f"[29 ring] traced {traced_ms:.3f} ms vs events {ev_ms:.3f} ms")
     return out
@@ -3293,39 +3306,19 @@ def phase_roofline(P, dev, card):
     return dict(res, launches=launches)
 
 
-# phase 41's attribution, in an interpreter of its own: late in this long
-# process torch.profiler kept no record of the step's first hand-written
-# kernels (D3's and both of B2's tiers) in four tries of four, where a fresh
-# process records them all, as the GPU tests' attribution checks do
-_ATTR_CHILD = """
-import json, sys, torch
-from mlp_ppo_2ply_multi_tpu_torch.scripts import trace_attr
-from mlp_ppo_2ply_multi_tpu_torch.utils import profiling
-a = trace_attr.attribute(sys.argv[1], int(sys.argv[2]), torch.device("cuda", 0))
-n = profiling.kernel_launches()
-print(json.dumps(dict(a, launches={k: n.get(k, 0) for k in ("fused_value", "nd_tail")})))
-"""
-
-
 def phase_trace_attr(P, dev, card):
     """41: ``scripts.trace_attr.attribute`` of one eager step of ``prod`` at
-    B = 4096 and of ``twoply_tuned`` at B = 1024, each in an interpreter of
-    its own: every JAX stage the step passes through owns device time in a
-    tag; the top rows, the unscoped share and the coverage against the
-    step's device time queued behind a spin kernel. The graphed step
-    replays the same kernels."""
+    B = 4096 and of ``twoply_tuned`` at B = 1024: every JAX stage the step
+    passes through owns device time in a tag; the top rows, the unscoped
+    share and the coverage against the step's device time queued behind a
+    spin kernel. The graphed step replays the same kernels."""
     TA, prof = P["trace_attr"], P["profiling"]
     out = {}
     for name, batch, want in (("prod", B_PROD, STAGES_1PLY),
                               ("twoply_tuned", B_TWOPLY, STAGES_2PLY)):
-        run = subprocess.run([sys.executable, "-c", _ATTR_CHILD, name, str(batch)], cwd=ROOT,
-                             capture_output=True, text=True, timeout=900,
-                             env={**os.environ, "PYTHONPATH": str(ROOT)})
-        if run.returncode != 0:
-            raise AssertionError(f"[41 trace_attr] {name}: exit {run.returncode}: "
-                                 f"{run.stderr[-3000:]}")
-        a = json.loads(run.stdout.strip().splitlines()[-1])
-        launches = a.pop("launches")
+        since = prof.kernel_launches()
+        a = TA.attribute(name, batch, dev)
+        launches = _launched(P, since, ("fused_value", "nd_tail"))
         for line in TA.report(name, batch, ATTR_TOP, a):
             log(f"[41 trace_attr] {line}")
         got = {p for t in a["stages"] for p in t.split("/") if prof.STAGE_RE.fullmatch(p)}
@@ -3741,6 +3734,8 @@ def main() -> int:
                 + sum(r["launches"]["nd_tail"] for r in gt.values()))
     graph_dd = (g1["dd_launches"] + g2["launches"]["dd_expand"]
                 + sum(r["launches"]["dd_expand"] for r in gt.values()))
+    graph_ndf = (g1["ndf_launches"] + g2["launches"]["nd_front"]
+                 + sum(r["launches"]["nd_front"] for r in gt.values()))
 
     take_rows, take_launches = phase_take(P, dev, card)
     phase_arena_card_vs_cpu(P, dev, card)
@@ -3984,9 +3979,11 @@ def main() -> int:
                                          "plain_ms", "bound_ms")} for k, v in mlp.items()},
         "ok": True,
     })
-    # the main paths' eager runs (phases 4 and 10), each gated at one launch a
-    # step, and phase 45's calls
-    ndf_paths = {"1ply": stats["nd_front_launches"], "2ply": stats2["nd_front_launches"]}
+    # the main paths' runs, each gated at one launch a step: eager (phases 4
+    # and 10), training (16-18), graphed (20-22) and the mesh CLI (29a)
+    ndf_paths = {"1ply": stats["nd_front_launches"], "2ply": stats2["nd_front_launches"],
+                 **{k: t["launches"]["nd_front"] for k, t in trains.items()},
+                 "graphs": graph_ndf, "train_mesh": mesh["launches"]["nd_front"]}
     kernels.append({
         "name": "nd_front",
         "route": "cuda",
@@ -4002,9 +3999,9 @@ def main() -> int:
         "bound_ms": ndf["1ply"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "paths": {k: {"launches": n, **{f: ndf[k][f] for f in (
-            "calls_per_step", "ms", "events_ms", "plain_ms", "bound_ms", "roofline")}}
-            for k, n in ndf_paths.items()},
+        "paths": {k: {"launches": n, **({f: ndf[k][f] for f in (
+            "calls_per_step", "ms", "events_ms", "plain_ms", "bound_ms", "roofline")}
+            if k in ndf else {})} for k, n in ndf_paths.items()},
         "ok": True,
     })
     log(f"card: {smi}")

@@ -62,9 +62,10 @@ branch of ``rollout_step`` runs three stages of its own
 the observation value, both tiers, the draw) or ``twoply`` (all of
 ``select_action_2ply``), and ``env`` (the env step, the reset, the
 ``Transition``). The tracer stamps their boundaries on the device in the
-first step of every chunk (``run_steps``), inside the graph too; the
-rollout is its ``rollout`` span, each graph launch a ``replay`` span, and
-a ``launch`` stamp precedes the update's first launch.
+first step of every chunk (``run_steps``), inside the graph too, and the
+chunk's tail after its last step; a ``replay`` stamp precedes each chunk's
+input copies and a ``launch`` stamp the update's first launch. The rollout
+is its ``rollout`` span, each graph launch a ``replay`` span.
 """
 from __future__ import annotations
 
@@ -511,17 +512,23 @@ Noise = Union[StepNoise, TwoPlyNoise]
 
 
 def run_steps(params, state, temperature, cfg: Config, continuous: bool,
-              noises: Sequence[Noise], dev: torch.device):
+              noises: Sequence[Noise], dev: torch.device, into=None):
     """``len(noises)`` eager steps, one for each noise; returns the final
-    state and their [len(noises), B] transition stack. The tracer stamps the
-    stages of the first (``profiling.step_stamps``)."""
+    state and their [len(noises), B] transition stack. ``into``: state
+    buffers the final state is copied into (a captured chunk's). The tracer
+    stamps the stages of the first step (``profiling.step_stamps``) and the
+    tail, the stack and the copy (``profiling.chunk_tail``)."""
     ts = []
     for i, nz in enumerate(noises):
         with profiling.step_stamps(dev, i == 0):
             state, t = rollout_step(params, state, temperature, cfg, continuous, noise=nz,
                                     device=dev)
         ts.append(t)
-    return state, Transition(*(torch.stack(xs) for xs in zip(*ts)))
+    with profiling.chunk_tail(dev):
+        traj = Transition(*(torch.stack(xs) for xs in zip(*ts)))
+        if into is not None:
+            copy_into(into, state)
+    return state, traj
 
 
 class ChunkGraph:
@@ -550,9 +557,8 @@ class ChunkGraph:
         self.warmup: Optional[Transition] = traj
 
         def body() -> None:
-            st, self.traj = run_steps(
-                params, self.state, self.temp, cfg, continuous, self.noise, dev)
-            copy_into(self.state, st)
+            _, self.traj = run_steps(
+                params, self.state, self.temp, cfg, continuous, self.noise, dev, into=self.state)
 
         self.graph, self.launches, info = capture_graph(
             body, dev, f"{chunk} rollout steps")
@@ -563,8 +569,10 @@ class ChunkGraph:
         """One chunk on the current stream, from ``state`` and at
         ``temperature`` (None: those the buffers hold, the last replay's
         final state); counts the launches it ran. ``launch``: the update's
-        first launch, after a ``launch`` stamp of the tracer. The launch
-        call is the tracer's ``replay`` span."""
+        first launch, after a ``launch`` stamp of the tracer. A ``replay``
+        stamp precedes the input copies; the launch call is the tracer's
+        ``replay`` span."""
+        profiling.replay_stamp(self.temp.device)
         if state is not None:
             copy_into(self.state, state)
         if isinstance(temperature, torch.Tensor):
@@ -650,6 +658,7 @@ def rollout_chunked(
         if dev.type != "cuda":
             for c in range(n_chunks):
                 nz = chunk_noise(c)
+                profiling.replay_stamp(dev)
                 if c == 0:
                     profiling.launch_stamp(dev)
                 state, traj = run_steps(params, state, temperature, cfg, continuous, nz, dev)

@@ -128,10 +128,20 @@ def _ints(name: str, x, shape: Tuple[int, ...], dev: torch.device) -> torch.Tens
 def launch_kernel(board: torch.Tensor, player, dice) -> Outputs:
     """Launch the CUDA kernel on the current stream, inside the op
     ``mlp_ppo_torch::nd_front``: board int8 [n, 52] on a card, player
-    integers broadcast to [n], dice integers broadcast to [n, 2] (each in
-    1..6). Returns (b1a int8 [n, 27, 52], b1b int8 [n, 27, 52], valid bool
-    [n, 1512], d_hi int64 [n], d_lo int64 [n]). Raises on operands it does
-    not take; counts the launch (``CudaKernel.count_launch``)."""
+    integers broadcast to [n], dice integers broadcast to [n, 2]. Returns
+    (b1a int8 [n, 27, 52], b1b int8 [n, 27, 52], valid bool [n, 1512],
+    d_hi int64 [n], d_lo int64 [n]). Raises on operands it does not take
+    by dtype, shape or device; counts the launch
+    (``CudaKernel.count_launch``).
+
+    Precondition, not checked (a check would read the card and stall the
+    host): each die lies in 1..6 and each player is 0 or 1. The kernel reads
+    a die outside 1..6 as the nearest face, so every access stays inside
+    the game's board, and writes ``d_hi``/``d_lo`` as given: its other
+    outputs then differ from the plain chain's, which does not take such
+    dice. The env's rolls are 1..6 (tests/test_torch_nd_front.py and
+    tests/test_torch_nd_front_gpu.py check what the rollout steps hand
+    the front)."""
     if not isinstance(board, torch.Tensor) or board.dtype != torch.int8 or board.dim() != 2 \
             or board.shape[1] != N_CELLS:
         raise ValueError(f"board must be int8 [n, {N_CELLS}], got "

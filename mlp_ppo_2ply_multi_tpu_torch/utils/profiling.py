@@ -19,9 +19,13 @@ bounded, while ``MLP_PPO_TORCH_TRACE`` is not ``0`` (the default records):
 * device stamps: ``ops.stamp`` writes the device's clock into a ring of rows
   on the device, at the stage boundaries of the first step of every chunk of
   the rollout (``step_stamps``, ``stage``: ``movegen``, ``act`` or
-  ``twoply``, ``env``), also inside a captured CUDA graph, and at the
-  update's first graph launch (``launch_stamp``) and around the learner
-  (``learner``). The slot comes from a cursor on the device; the host
+  ``twoply``, ``env``), also inside a captured CUDA graph, around the
+  chunk's tail (``chunk_tail``: the stack of its transitions and the copy
+  of its final state), before each chunk's input copies (``replay_stamp``),
+  at the update's first graph launch (``launch_stamp``) and around the
+  learner (``learner``). So a chunk's device time from its replay stamp to
+  its tail's end is stamped through, and so is the time between chunks,
+  where the card waits for the host. The slot comes from a cursor on the device; the host
   counts the rows it launched (a graph's replay counts the rows captured in
   it), so it knows where each landed without reading the cursor; the
   cursor, copied with each update's rows, checks that count;
@@ -48,8 +52,9 @@ copy has landed (at the next rollout's end, while the card works through
 its launches, or when records are asked for): ``trace_records`` may lag
 one update, and adds no host synchronisation. ``trace_records(t0, t1)`` gives each update whose
 ``rollout`` span starts in [t0, t1] (stage ms of each stamped step, the
-wait at the first graph launch, the learner's device ms, the host ms of the
-replays, captures and builds); ``trace_spans`` the set-up spans (captures,
+wait at the first graph launch, each chunk's device ms by part, the
+learner's device ms, the host ms of the replays, captures and builds);
+``trace_spans`` the set-up spans (captures,
 builds). ``to_profiler_us`` and ``device_to_profiler_us`` put host spans
 and device stamps on a torch.profiler trace's timeline;
 ``write_chrome_trace`` writes both on the host's clock.
@@ -228,12 +233,14 @@ class StageTimes(NamedTuple):
     traced_ms: float  # every device event of the trace, attributed or not
 
 
-def attribute_kernels(events) -> Tuple[Dict[str, Tuple[float, int]], float]:
+def attribute_kernels(events, within: Optional[str] = None
+                      ) -> Tuple[Dict[str, Tuple[float, int]], float]:
     """({tag: (device ms, ops)}, ms attributed) from a trace's events: each
     device event the profiler linked to the CPU event that launched it (an
     op or a scope, ``FunctionEvent.kernels``) goes to ``stage_tag`` of that
     event's chain of enclosing events (``cpu_parent``), with the device
-    event's name as the fallback."""
+    event's name as the fallback. ``within``: only the events inside a
+    scope of that name."""
     agg: Dict[str, List[float]] = collections.defaultdict(lambda: [0.0, 0])
     for e in events:
         kernels = getattr(e, "kernels", None)
@@ -245,6 +252,8 @@ def attribute_kernels(events) -> Tuple[Dict[str, Tuple[float, int]], float]:
             chain.append(p.name)
             p = p.cpu_parent
         chain.reverse()
+        if within is not None and within not in chain:
+            continue
         for k in kernels:
             a = agg[stage_tag(chain, k.name)]
             a[0] += k.duration / 1e3
@@ -254,9 +263,15 @@ def attribute_kernels(events) -> Tuple[Dict[str, Tuple[float, int]], float]:
 
 
 def device_stage_times(fn: Callable, *args) -> StageTimes:
-    """Run ``fn(*args)`` once under torch.profiler and group its device
-    events by the stage that launched them (``attribute_kernels``). Warm
-    ``fn`` up first. Attribution follows the profiler's links from a kernel
+    """Run ``fn(*args)`` twice under one torch.profiler session and group
+    the second call's device events by the stage that launched them
+    (``attribute_kernels``). The first call is a lead-in, waited for before
+    the second: late in a long process the profiler kept no record of a
+    session's first ~21 kernels, whatever ran or waited before them (a
+    spin kernel, a host sleep; H100 machine), and the lead-in's kernels
+    take that loss where ``fn`` launches more than that (a step launches
+    hundreds; a call of one kernel is attributed in an interpreter of its
+    own). Warm ``fn`` up first. Attribution follows the profiler's links from a kernel
     to the CPU op that launched it, so it needs an eager call: a CUDA graph
     replay links every kernel to ``cudaGraphLaunch``. A kernel launched
     through ctypes outside any op would be linked to no event, scopes around
@@ -268,14 +283,17 @@ def device_stage_times(fn: Callable, *args) -> StageTimes:
     from torch.profiler import profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        synchronize(fn(*args))
         with scope("device_stage_times"):
             out = fn(*args)
         synchronize(out)
     if not _cuda_devices(out, set()):
         return StageTimes({}, 0.0, 0.0)
     events = prof.events()
-    stages, attributed = attribute_kernels(events)
-    traced = sum(e.time_range.elapsed_us() for e in device_events(events)) / 1e3
+    stages, attributed = attribute_kernels(events, "device_stage_times")
+    start = min(e.time_range.start for e in events if e.name == "device_stage_times")
+    traced = sum(e.time_range.elapsed_us() for e in device_events(events)
+                 if e.time_range.start >= start) / 1e3
     return StageTimes(stages, attributed, traced)
 
 
@@ -372,7 +390,8 @@ TRACE_ENV = "MLP_PPO_TORCH_TRACE"
 WIDTH = 5  # int64 columns of a ring row: up to 4 stamps, then its sequence number x 8 + kind
 SETUP_SPANS = {"capture": "captures", "build": "builds"}  # one-time work, and its counter
 STAMP_KERNEL = "stamp_kernel"  # ``ops.stamp``'s kernel, by its name in a profiler trace
-KINDS = {"step": 1, "launch": 2, "learner": 3}  # a row's kind, in its last column
+# a row's kind, in its last column
+KINDS = {"step": 1, "launch": 2, "learner": 3, "replay": 4, "tail": 5}
 # counters that ``trace_summary`` reads by update: the launches of the
 # kernels registered with these ``counter`` names (the doubles kernel, B2, D2
 # and the non-doubles front D3; read as each update opens and closes, and 0
@@ -426,7 +445,9 @@ class _Ring:
 
 
 class _Row(NamedTuple):
-    kind: str  # "step" (stage starts, then "end"), "launch" or "learner" (begin, end)
+    # "step" (stage starts, then "end"), "launch" or "replay" (one stamp),
+    # "learner" or "tail" (begin, end)
+    kind: str
     names: Tuple[str, ...]  # the row's stamp columns, in order
     ring: _Ring
     seq: int  # the row's number in its ring; -1 while held by a captured graph
@@ -573,13 +594,26 @@ class Tracer:
             self._current().rows.append(_Row(kind, names, ring, ring.launched))
             ring.launched += 1
 
-    def launch(self, dev: torch.device) -> None:
-        """A row of one ``launch`` stamp, queued now."""
+    def mark(self, dev: torch.device, kind: str) -> None:
+        """A row of one stamp of ``kind`` (``launch``, ``replay``), queued now."""
         if not self._may_stamp(dev):
             return
         ring = self._ring(dev)
-        self._stamp(ring, 0, "launch")
-        self._row_done("launch", ("launch",), ring)
+        self._stamp(ring, 0, kind)
+        self._row_done(kind, (kind,), ring)
+
+    @contextlib.contextmanager
+    def pair(self, dev: torch.device, kind: str) -> Iterator[bool]:
+        """A row of ``kind`` (``learner``, ``tail``): device stamps at the
+        begin and the end of the work inside; yields whether it stamps."""
+        on = self._may_stamp(dev)
+        if on:
+            ring = self._ring(dev)
+            self._stamp(ring, 0)
+        yield on
+        if on:
+            self._stamp(ring, 1, kind)
+            self._row_done(kind, ("begin", "end"), ring)
 
     @contextlib.contextmanager
     def step_stamps(self, dev: torch.device, sampled: bool = True) -> Iterator[None]:
@@ -615,15 +649,8 @@ class Tracer:
     def learner(self, dev: torch.device) -> Iterator[None]:
         """The ``learner`` span, its device stamps at begin and end, then
         the update closes."""
-        with scope("learner", span=True):
-            on = self._may_stamp(dev)
-            if on:
-                ring = self._ring(dev)
-                self._stamp(ring, 0)
+        with scope("learner", span=True), self.pair(dev, "learner") as on:
             yield
-            if on:
-                self._stamp(ring, 1, "learner")
-                self._row_done("learner", ("begin", "end"), ring)
         if on:
             self.end_update()
 
@@ -763,14 +790,31 @@ def _record(upd: _Update, copies) -> dict:
             stale += 1
         else:
             got.append((r, v[:len(r.names)]))
-    stages, wait, learner_ms, launch = [], None, None, None
+    stages, chunks, wait, learner_ms, launch = [], [], None, None, None
+    # the chunk being read (its replay stamp, then its stamped step's first
+    # and last stamps) and the end of the last chunk's tail
+    chunk, last_end = None, None
     for r, ts in got:
         if r.kind == "step":
             stages.append({n: (ts[i + 1] - ts[i]) / 1e6 for i, n in enumerate(r.names[:-1])})
             if launch is not None:
                 wait = (ts[0] - launch) / 1e6
+            if chunk is not None and len(chunk) == 1:
+                chunk += [ts[0], ts[-1]]
         elif r.kind == "learner":
             learner_ms = (ts[1] - ts[0]) / 1e6
+        elif r.kind == "replay":
+            if chunk is not None:  # the last chunk's tail was not read
+                last_end = None
+            chunk = [ts[0]]
+        elif r.kind == "tail":
+            if chunk is not None and len(chunk) == 3:
+                start, first, end = chunk
+                chunks.append({
+                    "gap": None if last_end is None else (start - last_end) / 1e6,
+                    "inputs": (first - start) / 1e6, "step": (end - first) / 1e6,
+                    "tail": (ts[1] - ts[0]) / 1e6, "span": (ts[1] - start) / 1e6})
+            chunk, last_end = None, ts[1]
         launch = ts[0] if r.kind == "launch" else None
     span = {}
     for s in upd.spans:
@@ -782,6 +826,7 @@ def _record(upd: _Update, copies) -> dict:
         "rollout": (span["rollout"].start, span["rollout"].end) if "rollout" in span else None,
         "learner": (span["learner"].start, span["learner"].end) if "learner" in span else None,
         "stages": stages,
+        "chunks": chunks,
         "launch_wait_ms": wait,
         "learner_ms": learner_ms,
         "replay_ms": sum(s.seconds for s in replays) * 1e3,
@@ -813,7 +858,18 @@ def step_stamps(dev: torch.device, sampled: bool = True):
 
 def launch_stamp(dev: torch.device) -> None:
     """A stamp before the update's first graph launch (a row of its own)."""
-    TRACER.launch(dev)
+    TRACER.mark(dev, "launch")
+
+
+def replay_stamp(dev: torch.device) -> None:
+    """A stamp before a chunk's input copies (a row of its own)."""
+    TRACER.mark(dev, "replay")
+
+
+def chunk_tail(dev: torch.device):
+    """Device stamps around a chunk's tail, after its last step (a row of
+    its own)."""
+    return TRACER.pair(dev, "tail")
 
 
 def learner(dev: torch.device):
@@ -863,7 +919,13 @@ def trace_records(t0: Optional[float] = None, t1: Optional[float] = None) -> Lis
     """Each readable update whose ``rollout`` span starts in [t0, t1]
     (``time.perf_counter`` seconds; every readable update without bounds):
     a dict with ``update``; ``rollout`` and ``learner`` (host start, end);
-    ``stages`` (each stamped step's {stage: device ms}); ``launch_wait_ms``
+    ``stages`` (each stamped step's {stage: device ms}); ``chunks`` (each
+    chunk whose replay, stamped step and tail rows were read, in device ms:
+    ``inputs`` from its replay stamp to its first stage stamp, the input
+    copies and any wait for the graph's launch; ``step``, its stamped step;
+    ``tail``; ``span``, from its replay stamp to its tail's end; ``gap``,
+    from the last chunk's tail to its replay stamp, None for the first);
+    ``launch_wait_ms``
     (the first graph stamp less the ``launch`` stamp); ``learner_ms`` (the
     learner's device ms); ``replay_ms`` and ``replays`` (host time of the
     graph launch calls); ``captures``, ``builds`` and the other
@@ -883,9 +945,10 @@ def trace_spans() -> List[Span]:
 
 def trace_summary() -> Dict[str, float]:
     """The newest readable update as ``trace/*`` scalars: the mean device
-    ms of each stage of its stamped steps, the launch wait, the learner's
-    device ms, the replays' host ms, its ``UPDATE_COUNTERS``, and the
-    graphs captured and kernels built so far."""
+    ms of each stage of its stamped steps, of its chunks' input copies,
+    tails and gaps, the launch wait, the learner's device ms, the replays'
+    host ms, its ``UPDATE_COUNTERS``, and the graphs captured and kernels
+    built so far."""
     recs = trace_records()
     if not recs:
         return {}
@@ -894,6 +957,10 @@ def trace_summary() -> Dict[str, float]:
     for name in dict.fromkeys(n for st in r["stages"] for n in st):
         ms = [st[name] for st in r["stages"] if name in st]
         out[f"trace/{name}_ms"] = sum(ms) / len(ms)
+    for part in ("inputs", "tail", "gap"):
+        ms = [c[part] for c in r["chunks"] if c[part] is not None]
+        if ms:
+            out[f"trace/chunk_{part}_ms"] = sum(ms) / len(ms)
     if r["launch_wait_ms"] is not None:
         out["trace/launch_wait_ms"] = r["launch_wait_ms"]
     if r["learner_ms"] is not None:
@@ -1019,8 +1086,8 @@ def chrome_trace() -> dict:
                 for i, n in enumerate(names[:-1]):
                     events.append({"name": n, "ph": "X", "ts": us(ts[i]),
                                    "dur": (ts[i + 1] - ts[i]) / 1e3, **base})
-            elif kind == "learner":
-                events.append({"name": "learner", "ph": "X", "ts": us(ts[0]),
+            elif kind in ("learner", "tail"):
+                events.append({"name": kind, "ph": "X", "ts": us(ts[0]),
                                "dur": (ts[1] - ts[0]) / 1e3, **base})
             else:
                 events.append({"name": kind, "ph": "i", "s": "t", "ts": us(ts[0]), **base})

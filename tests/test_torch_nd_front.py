@@ -1,15 +1,18 @@
 """The non-doubles front kernel's host side on the CPU (``ops.nd_front``) and
 the front's route (``movegen2.nd_front``).
 
-* ``nd_front`` on CPU tensors equals ``_nd_candidates``' children of both
-  passes, candidate bits, d_hi and d_lo, on sampled and built positions
-  (bar entries against blocked points, bear-offs through the farthest and
-  the exact slot, no legal move, a forced single move that zeroes pass B),
-  for both players, on flat and shaped batches with broadcast operands.
+* ``nd_front`` on CPU tensors, shaped batches and broadcast operands come
+  back in the board's batch shape, equal to ``_nd_candidates`` on the
+  flattened operands.
 * A CPU tensor takes the plain chain: the kernel is neither planned nor
   launched, nothing is counted as ``nd_front_plain``; ``enumerate_nondoubles``
   without passes and ``legal_moves_split`` take their front from
-  ``nd_front``, the 2-ply replies (passes handed in) from ``_nd_candidates``.
+  ``nd_front``, the 2-ply replies (passes handed in) from ``_nd_candidates``,
+  on sampled and built positions (bar entries against blocked points,
+  bear-offs through the farthest and the exact slot, no legal move, a
+  forced single move that zeroes pass B) of both players.
+* The rollout steps hand the front the players and dice the kernel takes
+  (it reads a die outside 1..6 as the nearest face, unchecked).
 * The launch planner and the shared memory of a block, by hand.
 * ``bound``: the bytes in and out.
 * The kernel wrapper refuses a CPU board, a wrong dtype and a wrong shape.
@@ -21,12 +24,16 @@ import numpy as np
 import pytest
 import torch
 
+from mlp_ppo_2ply_multi_tpu_torch.actor import rollout
 from mlp_ppo_2ply_multi_tpu_torch.core.config import MoveGenConfig
 from mlp_ppo_2ply_multi_tpu_torch.engine import movegen2
 from mlp_ppo_2ply_multi_tpu_torch.engine.board import Board
+from mlp_ppo_2ply_multi_tpu_torch.env import vec_env
+from mlp_ppo_2ply_multi_tpu_torch.learner import td
 from mlp_ppo_2ply_multi_tpu_torch.ops import nd_front
 from mlp_ppo_2ply_multi_tpu_torch.oracle.sampling import sample_cases
 from mlp_ppo_2ply_multi_tpu_torch.utils import profiling as P
+from tests.test_torch_trace import config as trace_config
 
 H100_SMS = 132
 
@@ -103,27 +110,6 @@ def _assert_front(got, want, what):
         assert torch.equal(a, b), (what, name)
 
 
-@pytest.mark.parametrize("source", ["sampled", "edges"])
-def test_the_cpu_front_is_the_plain_chain(source, monkeypatch):
-    board, player, dice = sampled(96, 17) if source == "sampled" else tensors(edge_cases())
-
-    def no_kernel(*args, **kwargs):
-        raise AssertionError("the kernel route ran on the CPU")
-
-    monkeypatch.setattr(nd_front, "launch_kernel", no_kernel)
-    monkeypatch.setattr(nd_front, "plan", no_kernel)
-    monkeypatch.setenv(P.TRACE_ENV, "1")
-    P.TRACER.reset()
-    launches = nd_front.KERNEL.launches
-    got = movegen2.nd_front(board, player, dice)
-    _assert_front(got, _want(board, player, dice), source)
-    n = board.data.shape[0]
-    assert got[0].data.shape == (n, 27, 52) and got[2].shape == (n, 1512)
-    assert nd_front.KERNEL.launches == launches
-    assert "nd_front_plain" not in P.TRACER.counters  # counted on a card only
-    P.TRACER.reset()
-
-
 def test_the_edge_cases_reach_what_they_are_built_for():
     """The built positions hold the rows the card's tests compare: no legal
     move, a pass B zeroed by the skip, bear-offs through slots 25 and 26, a
@@ -153,11 +139,25 @@ def test_shaped_batches_and_broadcast_operands():
         assert got[0].data.shape == (2, 12, 27, 52) and got[3].shape == (2, 12)
 
 
-def test_the_enumerations_take_their_front_from_nd_front(monkeypatch):
+@pytest.mark.parametrize("source", ["sampled", "edges"])
+def test_the_enumerations_take_their_front_from_nd_front(source, monkeypatch):
     """``enumerate_nondoubles`` without passes, ``legal_moves`` and
-    ``legal_moves_split`` call ``nd_front``; ``enumerate_nondoubles`` with
-    passes (the 2-ply replies) keeps ``_nd_candidates``."""
-    board, player, dice = sampled(64, 23)
+    ``legal_moves_split`` call ``nd_front``, which on CPU tensors takes the
+    plain chain: the kernel is neither planned nor launched, and nothing is
+    counted as ``nd_front_plain`` (counted on a card only);
+    ``enumerate_nondoubles`` with passes (the 2-ply replies) keeps
+    ``_nd_candidates``."""
+    board, player, dice = sampled(64, 23) if source == "sampled" else tensors(edge_cases())
+    n = board.data.shape[0]
+
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("the kernel route ran on the CPU")
+
+    monkeypatch.setattr(nd_front, "launch_kernel", no_kernel)
+    monkeypatch.setattr(nd_front, "plan", no_kernel)
+    monkeypatch.setenv(P.TRACE_ENV, "1")
+    P.TRACER.reset()
+    launches = nd_front.KERNEL.launches
     calls = []
     real = movegen2.nd_front_plain
 
@@ -170,13 +170,51 @@ def test_the_enumerations_take_their_front_from_nd_front(monkeypatch):
     movegen2.legal_moves_split(board, player, dice, fast)
     movegen2.enumerate_nondoubles(board, player, dice, fast)
     movegen2.legal_moves(board, player, dice, MoveGenConfig())
-    assert calls == [64, 64, 64]
+    assert calls == [n, n, n]
     d_hi = torch.maximum(dice[:, 0], dice[:, 1])
     d_lo = torch.minimum(dice[:, 0], dice[:, 1])
     passes = (movegen2._run_pass(board, player, d_hi, d_lo),
               movegen2._run_pass(board, player, d_lo, d_hi))
     movegen2.enumerate_nondoubles(board, player, dice, fast, passes)
-    assert calls == [64, 64, 64]
+    assert calls == [n, n, n]
+    got = movegen2.nd_front(board, player, dice)
+    assert got[0].data.shape == (n, 27, 52) and got[2].shape == (n, 1512)
+    assert nd_front.KERNEL.launches == launches
+    assert "nd_front_plain" not in P.TRACER.counters
+    P.TRACER.reset()
+
+
+@pytest.mark.parametrize("path", ["split", "twoply"])
+def test_the_main_path_hands_the_front_dice_it_takes(path, monkeypatch):
+    """The kernel reads a die outside 1..6 as the nearest face, unchecked
+    (a check would read the card): every ``nd_front`` call of the rollout
+    steps, 1-ply and the 2-ply step's own moves, gets players 0 and 1 and
+    dice 1..6, the rolls of the env and of its openings."""
+    seen = []
+    real = movegen2.nd_front
+
+    def spy(board, player, dice):
+        n = board.data.shape[0]
+        seen.append((torch.broadcast_to(torch.as_tensor(player), (n,)).clone(),
+                     torch.broadcast_to(torch.as_tensor(dice), (n, 2)).clone()))
+        return real(board, player, dice)
+
+    monkeypatch.setattr(movegen2, "nd_front", spy)
+    cfg = trace_config(path)
+    gen = torch.Generator().manual_seed(9)
+    state = vec_env.reset(16, gen, "cpu")
+    params = td.init_train_state(cfg, gen, "cpu").params
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rollout.rollout_loop(params, state, 1.0, cfg, 12, True, gen=gen, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert len(seen) == 12
+    players = torch.cat([p for p, _ in seen])
+    dice = torch.cat([d for _, d in seen])
+    assert set(players.tolist()) == {0, 1}
+    assert int(dice.min()) == 1 and int(dice.max()) == 6
 
 
 @pytest.mark.parametrize("n, games, blocks", [

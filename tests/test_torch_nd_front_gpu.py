@@ -17,10 +17,15 @@ byte, invalid children and cells included.
 * A graphed 1-ply chunk of the production step and a graphed 2-ply step,
   through the kernel and through the plain chain: identical trajectories and
   states; the tracer's record counts one launch a step and no plain call.
+* The production steps hand the kernel players 0 and 1 and dice 1..6 (it
+  reads a die outside 1..6 as the nearest face, unchecked).
+* The benchmark cells' traced eager step, after a profiled update as the
+  harness runs it: torch.profiler records the front kernel and every B2
+  and doubles kernel launch of the step.
 
 These tests need a CUDA card and skip elsewhere (the kernel has no CPU
-mode). The file imports torch and the port only, so on the card it runs
-without JAX:
+mode). The file imports torch, the port and the benchmark only, so on the
+card it runs without JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_nd_front_gpu.py
 """
@@ -200,8 +205,10 @@ def test_enumerations_equal_through_kernel_and_plain_chain(what, positions, monk
             assert a is None or torch.equal(a, b), (what, source, name)
 
 
-# the attribution check, in an interpreter of its own: late in a long test
-# process torch.profiler has been seen to collect no device event at all
+# the attribution check, in an interpreter of its own: late in a long
+# process torch.profiler keeps no record of a session's first ~21 kernels,
+# and ``device_stage_times``' lead-in, a call of one kernel here, cannot
+# take that loss
 _ATTRIBUTION = """
 import torch
 from tests.test_torch_nd_front import sampled
@@ -281,3 +288,59 @@ def test_graphed_steps_equal_through_kernel_and_plain_chain(twoply, batch, steps
     # chunk and the capture; a replay runs no Python
     assert prec["counters"].get("nd_front_plain") == 2 * chunk
     P.TRACER.reset()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("twoply, batch", [(False, 4096), (True, 1024)])
+def test_the_production_steps_hand_the_kernel_dice_it_takes(twoply, batch, monkeypatch):
+    dev = _card()
+    seen = []
+    real = movegen2.nd_front
+
+    def spy(board, player, dice):
+        n = board.data.shape[0]
+        p = torch.broadcast_to(torch.as_tensor(player, device=dev), (n,))
+        d = torch.broadcast_to(torch.as_tensor(dice, device=dev), (n, 2))
+        seen.append(torch.stack([p.min(), p.max(), d.min(), d.max()]))
+        return real(board, player, dice)
+
+    monkeypatch.setattr(movegen2, "nd_front", spy)
+    cfg = _production(twoply)
+    params = value_net.load_checkpoint(CKPT, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    st = vec_env.reset(batch, gen, device=dev)
+    rollout.rollout_loop(params, st, 1.0, cfg, 8, True, gen=gen, device=dev)
+    lo_hi = torch.stack(seen).cpu()
+    assert lo_hi.shape[0] == 8  # one call a step
+    assert int(lo_hi[:, 0].min()) == 0 and int(lo_hi[:, 1].max()) == 1
+    assert int(lo_hi[:, 2].min()) >= 1 and int(lo_hi[:, 3].max()) <= 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload, tail, doubles", [
+    ("prod1ply.train", 2, 1),  # B2's two tiers, the doubles sub-batch
+    ("prod2ply.train", 17, 7),  # and the 2-ply replies' 15 tails and 6 doubles calls
+])
+def test_the_benchmarks_eager_step_records_the_front_and_the_tiers(workload, tail, doubles):
+    """``movegen.device_ms_per_step`` reads torch.profiler's kernel records
+    of one eager step that the harness profiles after a profiled update:
+    the records hold the front kernel's one launch and each B2 and doubles
+    kernel launch of the step, and the step's move generation owns device
+    time."""
+    from benchmark import harness
+    from benchmark import trace as T
+
+    dev = _card()
+    files = harness.cell_files(workload)
+    cell = harness.driver(files.traffic["kind"]).Cell(
+        dict(files.config), dict(files.traffic), 2**31 + 11, dev, harness.REPO)
+    for _ in range(2):  # the first captures the rollout's graph
+        cell.work()
+    cell.profiled(1)
+    out = cell.eager_step()
+    by = out["by_name"]
+    launches = {k: T.kernel_seconds(by, f"{k}_kernel")[1] for k in ("nd_front", "nd_tail",
+                                                                     "dd_expand")}
+    assert launches == {"nd_front": 1, "nd_tail": tail, "dd_expand": doubles}, by
+    assert out["movegen"] > 0 and out["attributed"] > 0
+    graphs.clear_graphs()

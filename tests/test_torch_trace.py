@@ -3,7 +3,9 @@ host's ``perf_counter_ns`` and every piece of its bookkeeping runs.
 
 * Stage order and names: a rollout of each branch of the step (1-ply split
   planes, merged, tiered; 2-ply) at small widths and B = 8 stamps the first
-  step of each chunk with its stages in order, on the host spans' clock.
+  step of each chunk with its stages in order, each chunk's replay and tail
+  around it, on the host spans' clock; the chunks' parts (input copies,
+  stamped step, tail, the gap since the last chunk) tile each span.
 * Tracing on and off give bit-equal trajectories; off keeps nothing.
 * The ring: rows beyond its slots are lost, counted, and the rest read; a
   graph's replayed rows are counted by the host, and a replay it did not
@@ -96,9 +98,18 @@ def _update(cfg, seed=0, steps=STEPS, chunk=CHUNK, learner=True, state=None):
 def test_stamped_stages_in_order_on_every_branch(path):
     _update(config(path))
     (rec,) = P.trace_records()
-    assert [k for k, *_ in rec["rows"]] == ["launch", "step", "step", "learner"]
+    assert [k for k, *_ in rec["rows"]] == ["replay", "launch", "step", "tail",
+                                            "replay", "step", "tail", "learner"]
     assert [list(st) for st in rec["stages"]] == [STAGES[path]] * (STEPS // CHUNK)
     assert all(ms >= 0 for st in rec["stages"] for ms in st.values())
+    chunks = rec["chunks"]
+    assert len(chunks) == STEPS // CHUNK and chunks[0]["gap"] is None and chunks[1]["gap"] >= 0
+    for c, st in zip(chunks, rec["stages"]):
+        assert c["step"] == pytest.approx(sum(st.values()))
+        assert min(c["inputs"], c["tail"]) >= 0 and c["inputs"] >= rec["launch_wait_ms"] * (
+            c is chunks[0])
+        # the unstamped steps lie between the stamped one and the tail
+        assert c["inputs"] + c["step"] + c["tail"] <= c["span"]
     # on the CPU a stamp is perf_counter_ns, the host spans' clock
     stamps = [ns for _, _, ts, _ in rec["rows"] for ns in ts]
     assert stamps == sorted(stamps)
@@ -137,19 +148,24 @@ def test_trace_off_keeps_nothing(monkeypatch, tmp_path):
 
 
 def test_ring_wrap_and_the_hosts_slot_bookkeeping(tracer):
-    tracer.slots = 4
+    tracer.slots = 8
     tracer.reset()
     cfg = config("merged")
-    ts, _, _ = _update(cfg, steps=8, chunk=1)  # launch, 8 steps, learner: 10 rows in 4 slots
-    _update(cfg, steps=2, chunk=1, state=ts)  # 4 rows: none lost
-    first, second = P.trace_records()
-    assert first["lost_rows"] == 6 and first["stale_rows"] == 0
-    assert len(first["stages"]) == 3 and first["launch_wait_ms"] is None
+    # launch, 8 chunks of (replay, step, tail), learner: 26 rows in 8 slots,
+    # the last 8 read: the tail of chunk 6, then chunks 7 and 8 and the learner
+    ts, _, _ = _update(cfg, steps=8, chunk=1)
+    first = P.trace_records()[0]
+    assert first["lost_rows"] == 18 and first["stale_rows"] == 0
+    assert len(first["stages"]) == 2 and first["launch_wait_ms"] is None
     assert first["learner_ms"] > 0
+    assert len(first["chunks"]) == 2 and first["chunks"][0]["gap"] is not None
+    # launch, 2 chunks, learner: 8 rows, none lost
+    _update(cfg, steps=2, chunk=1, state=ts)
+    second = P.trace_records()[1]
     assert second["lost_rows"] == 0 and len(second["stages"]) == 2
-    assert second["launch_wait_ms"] is not None
+    assert second["launch_wait_ms"] is not None and len(second["chunks"]) == 2
     ring = tracer.rings["cpu"]
-    assert ring.launched == 14 and int(ring.cursor) == 14
+    assert ring.launched == 34 and int(ring.cursor) == 34
 
     # a graph's rows: its kernels stamp at each replay, the host counts them
     rows = [P._Row("step", ("movegen", "act", "end"), ring, -1)]
@@ -174,7 +190,7 @@ def test_ring_wrap_and_the_hosts_slot_bookkeeping(tracer):
     # one): the cursor the update closed at, one past the host's count,
     # leaves both rows out rather than misread
     assert rec["stale_rows"] == 2 and rec["stages"] == [] and rec["launch_wait_ms"] is None
-    assert ring.launched == 19 and int(ring.cursor) == 20
+    assert ring.launched == 39 and int(ring.cursor) == 40
 
 
 def test_window_selection_by_host_time():
@@ -326,7 +342,8 @@ def test_train_cli_writes_trace_scalars_and_a_chrome_trace(tmp_path):
     host = [e for e in events if e["tid"] == "host"]
     dev = [e for e in events if e["tid"] == "device cpu"]
     assert {e["name"] for e in host} >= {"rollout", "learner"}
-    assert {e["name"] for e in dev} == {"movegen", "act", "env", "launch", "learner"}
+    assert {e["name"] for e in dev} == {"movegen", "act", "env", "launch", "replay", "tail",
+                                        "learner"}
     # one timeline: each update's device stages lie inside its rollout span
     for r in (e for e in host if e["name"] == "rollout"):
         inside = [e for e in dev if e["args"]["update"] == r["args"]["update"]

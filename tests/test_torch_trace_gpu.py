@@ -5,9 +5,10 @@
   slots, with times that rise in launch order.
 * The stamped graph's outputs equal the unstamped graph's (tracing on and
   off capture two graphs of one step).
-* The stage ms of a stamped step sum to within 3% of CUDA events around
-  its replay (a graph of one step, queued behind a spin kernel so the
-  events time the graph and not the host's launch).
+* The stage ms of a stamped step, with its chunk's input copies and tail,
+  sum to within 3% of CUDA events around its replay (a graph of one step,
+  queued behind a spin kernel so the events time the graph and not the
+  host's launch).
 * The wait at an update's first graph launch is read, and not zero; a
   bare replay of the chunk graph (as a timing loop makes) is counted, so
   the updates after it are read whole.
@@ -146,10 +147,13 @@ def test_stage_sums_match_events_around_the_replay(fresh):
         events.append(e0.elapsed_time(e1))
     P.trace_flush()
     torch.cuda.synchronize()
-    stages = P.trace_records()[-1]["stages"]
+    rec = P.trace_records()[-1]
+    stages, chunks = rec["stages"], rec["chunks"]
     assert len(stages) == 5 and all(list(st) == ["movegen", "act", "env"] for st in stages)
-    for st, ev in zip(stages, events):
-        assert abs(sum(st.values()) - ev) <= 0.03 * ev, (st, ev)
+    assert len(chunks) == 5
+    for st, ch, ev in zip(stages, chunks, events):
+        traced = ch["inputs"] + sum(st.values()) + ch["tail"]
+        assert abs(traced - ev) <= 0.03 * ev, (st, ch, ev)
 
 
 @pytest.mark.gpu
@@ -244,7 +248,9 @@ def test_profiled_update_maps_spans_and_stamps_onto_the_trace(fresh):
                      if P.STAMP_KERNEL in e.name)
     off = P.device_offset_us(prof)
     stamps = [ns for _, _, ts, _ in rec["rows"] for ns in ts]
-    assert off is not None and len(stamps) == 4 * (STEPS // CHUNK) + 3
+    # a chunk's replay stamp, its step's four and its tail's two; the
+    # launch stamp and the learner's two
+    assert off is not None and len(stamps) == 7 * (STEPS // CHUNK) + 3
     near = [min(abs(P.device_to_profiler_us(ns, prof, off) - k) for k in kernels)
             for ns in stamps]
     # the profiler drops kernel records now and then: most stamps find theirs
